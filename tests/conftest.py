@@ -31,6 +31,11 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def devices():
     return jax.devices()
