@@ -1,7 +1,7 @@
 """State carried across from the JAX package, and back.
 
-The JAX package's ``MPCProblem``, ``MPCCarry`` and ``RobotSnapshot`` come in
-as numpy leaves — a mapping of field name to array, or any named tuple with
+The JAX package's ``MPCProblem``, ``MPCCarry``, ``RobotSnapshot``,
+``PlantState`` and ``LoopCarry`` come in as numpy leaves — a mapping of field name to array, or any named tuple with
 ``_asdict()`` (what ``jax.tree.map(np.asarray, ...)`` returns) — so both
 packages can start a tick from bit-identical state without this package
 importing JAX. The converters return this package's containers on a given
@@ -20,6 +20,9 @@ from .ops.admm import Scaling
 from .qp.blocks import LambdaInit
 from .qp.condensed import CondensedScaling
 from .qp.mpc import MPCProblem
+from .runtime.loop import LoopCarry
+from .sim.ekf import EKFState
+from .sim.plant import PlantState
 
 
 def _fields(obj) -> dict:
@@ -69,6 +72,45 @@ def snapshot_from_numpy(snap, device, batched: bool = False) -> RobotSnapshot:
     """The port's :class:`RobotSnapshot`; an unbatched JAX snapshot becomes
     one lane (leading dimension 1)."""
     return _container(RobotSnapshot, snap, device, batched)
+
+
+def plant_state_from_numpy(state, device, batched: bool = False) -> PlantState:
+    """The port's :class:`PlantState`; an unbatched JAX state becomes one
+    lane. The JAX state's PRNG key has no counterpart (the port's plant owns
+    its noise generator), so ``rng`` is None."""
+    src = _fields(state)
+    out = {k: _tensor(src.get(k), device, batched)
+           for k in PlantState._fields if k not in ("ekf", "rng")}
+    return PlantState(ekf=_container(EKFState, src["ekf"], device, batched),
+                      rng=None, **out)
+
+
+def loop_carry_from_numpy(carry, device, batched: bool = False) -> LoopCarry:
+    """The port's :class:`LoopCarry` (plant state, MPC carry and the two
+    telemetry filters)."""
+    src = _fields(carry)
+    return LoopCarry(
+        plant=plant_state_from_numpy(src["plant"], device, batched),
+        mpc=carry_from_numpy(src["mpc"], device, batched),
+        base_lin_vel_filt=_tensor(src["base_lin_vel_filt"], device, batched),
+        base_ang_vel_filt=_tensor(src["base_ang_vel_filt"], device, batched))
+
+
+def lstm_from_numpy(weights, device, dtype=torch.float32):
+    """An :class:`LSTMJetModel` from a mapping with the keys of
+    ``data/jet_lstm_weights.npz`` (weights, biases and the four
+    normalisation scalars), without reading a file."""
+    from .sim.jet_lstm import LSTMJetModel
+
+    return LSTMJetModel(dict(weights), dtype=dtype, device=device)
+
+
+def to_device(obj, device):
+    """Tensors (also inside named tuples) moved to ``device``; None stays
+    None."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(v, device) for v in obj))
+    return None if obj is None else obj.to(device)
 
 
 def to_numpy(obj):

@@ -9,6 +9,7 @@ Shapes below are per lane.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -103,3 +104,19 @@ def expand_lanes(nt, batch: int):
     return type(nt)(*(None if t is None
                       else t.expand(batch, *t.shape[1:]).contiguous()
                       for t in nt))
+
+
+@functools.lru_cache(maxsize=None)
+def index_tensor(idx: tuple, device) -> torch.Tensor:
+    """The static index tuple ``idx`` as a long tensor on ``device``, made
+    once. Indexing with a Python list copies the list to the device on every
+    call, and that copy makes the host wait for the stream; callers must not
+    write into the returned tensor."""
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def const_tensor(values, dtype, device) -> torch.Tensor:
+    """A static scalar or tuple of scalars as a tensor on ``device``, made
+    once (see :func:`index_tensor`); read-only for its callers."""
+    return torch.tensor(values, dtype=dtype, device=device)

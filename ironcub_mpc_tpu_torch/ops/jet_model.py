@@ -131,3 +131,35 @@ def thrust_ddot(thrust, thrust_dot, throttle):
 def throttle_to_v(throttle):
     """Physical throttle [%] -> standardised v-space (bounds, pins, costs)."""
     return v(standardize_throttle(throttle))
+
+
+def step(thrust, thrust_dot, throttle, dt):
+    """Semi-implicit Euler step of the second-order jet dynamics: Ṫ is
+    advanced first, then T integrates the *new* Ṫ."""
+    tdd = thrust_ddot(thrust, thrust_dot, throttle)
+    new_td = thrust_dot + tdd * dt
+    new_t = thrust + new_td * dt
+    return new_t, new_td
+
+
+def step_jacobians(x, u, dt):
+    """Jacobians (A, B) of the discrete :func:`step` w.r.t. the state
+    x = [..., (T, Ṫ)] and the throttle u [...], in closed form from the
+    polynomial's partials: A is [..., 2, 2], B is [..., 2] (the 2×1 column).
+
+    With h = T̈: Ṫ' = Ṫ + h·dt and T' = T + Ṫ'·dt, so
+    A = [[1 + h_T dt², dt + h_Ṫ dt²], [h_T dt, 1 + h_Ṫ dt]] and
+    B = [h_u dt², h_u dt]. ``dh_dthrust`` is dimensionless (∂T̈/∂T in
+    physical units, the two standardisations cancel); ``dh_dthrust_dot``
+    likewise."""
+    thrust, thrust_dot = x[..., 0], x[..., 1]
+    h_t = dh_dthrust(thrust, thrust_dot, u)
+    h_td = dh_dthrust_dot(thrust, thrust_dot, u)
+    us = standardize_throttle(u)
+    h_u = (g(standardize_thrust(thrust), standardize_thrust_dot(thrust_dot))
+           * (1.0 + 2.0 * _C[12] * us) * (THRUST_STD / THROTTLE_STD))
+    A = torch.stack([
+        torch.stack([1.0 + h_t * dt * dt, dt + h_td * dt * dt], dim=-1),
+        torch.stack([h_t * dt, 1.0 + h_td * dt], dim=-1)], dim=-2)
+    B = torch.stack([h_u * dt * dt, h_u * dt], dim=-1)
+    return A, B

@@ -1,4 +1,4 @@
-"""The condensed solve's two hot primitives: hand-written CUDA kernels for
+"""The condensed solve's hot primitives: hand-written CUDA kernels for
 Hopper, their plain PyTorch twins and their launch counters.
 
 Counterpart of ``ironcub_mpc_tpu/ops/pallas_solve.py``:
@@ -6,11 +6,15 @@ Counterpart of ``ironcub_mpc_tpu/ops/pallas_solve.py``:
 - :func:`admm_segment` replaces ``pallas_solve.admm_segment`` — ``length``
   over-relaxed ADMM iterations with K⁻¹ resident on chip
   (``csrc/admm_segment.cu``).
+- :func:`admm_segment_grouped` replaces ``pallas_solve.admm_segment_grouped``
+  — the same segment with ``group`` scenarios advanced by one program
+  (``csrc/admm_segment_grouped.cu``); the batched head-to-head of
+  ``tools/bench_segment_kernels_torch.py`` runs it, the tick does not.
 - :func:`woodbury_ns` replaces ``pallas_solve.woodbury_ns`` — the rank-n_box
   Woodbury ρ-refresh of K⁻¹ with its Gauss–Jordan capacitance inverse,
   Newton–Schulz steps and symmetrised output (``csrc/woodbury_ns.cu``).
 
-Both take the full, lane-padded layout of the Pallas kernels with a leading
+All take the full, lane-padded layout of the Pallas kernels with a leading
 batch dimension B: matrices [B, P, P], vectors [B, P] (P = 128 for the
 stock nU = 120). Box entries sit at ``box0:``; outside the box ρ = 0, 1/ρ =
 0 and the bounds are ±inf_bound, so no masks are needed.
@@ -38,9 +42,14 @@ import torch
 LANE = 128
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"admm_segment": "admm_segment.cu", "woodbury_ns": "woodbury_ns.cu"}
-# the most dynamic shared memory one block may use on Hopper (227 KB)
+SOURCES = {"admm_segment": "admm_segment.cu",
+           "admm_segment_grouped": "admm_segment_grouped.cu",
+           "woodbury_ns": "woodbury_ns.cu"}
+# the most dynamic shared memory one block may use on Hopper (227 KB), the
+# most threads of one block and its named barriers besides __syncthreads
 MAX_SMEM = 232448
+MAX_THREADS = 1024
+MAX_NAMED_BARRIERS = 15
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,6 +116,8 @@ def _lib(name: str):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "admm_segment":
             fn.argtypes = [p] * 12 + [i, i, f, f, f, i, p]
+        elif name == "admm_segment_grouped":
+            fn.argtypes = [p] * 12 + [i, i, i, f, f, f, i, p]
         else:
             fn.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
         _libs[name] = lib
@@ -124,6 +135,15 @@ def _check(tensors: dict, device, shapes: dict):
                              f"expected {shapes[key]}")
         if not t.is_contiguous():
             raise ValueError(f"{key} must be contiguous")
+
+
+def _check_segment(Kinv_p, vecs: dict):
+    """The checks shared by the two segment wrappers: K⁻¹ [B, P, P] and
+    every vector [B, P]."""
+    B, P = Kinv_p.shape[0], Kinv_p.shape[-1]
+    shapes = {k: (B, P) for k in vecs}
+    shapes["Kinv_p"] = (B, P, P)
+    _check(dict(Kinv_p=Kinv_p, **vecs), Kinv_p.device, shapes)
 
 
 def _raise_on(rc: int, name: str):
@@ -178,9 +198,7 @@ def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
                          "of 32 in (0, 1024]")
     vecs = dict(q_f=q_f, lb_f=lb_f, ub_f=ub_f, rho_f=rho_f, rhoi_f=rhoi_f,
                 x_f=x_f, z_f=z_f, y_f=y_f)
-    shapes = {k: (B, P) for k in vecs}
-    shapes["Kinv_p"] = (B, P, P)
-    _check(dict(Kinv_p=Kinv_p, **vecs), Kinv_p.device, shapes)
+    _check_segment(Kinv_p, vecs)
     xo, zo, yo = (torch.empty_like(x_f) for _ in range(3))
     fn = _lib("admm_segment").admm_segment_launch
     with torch.cuda.device(Kinv_p.device):
@@ -195,6 +213,85 @@ def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
 
 
 admm_segment.launches = 0
+
+
+# --------------------------------------------------------------------------
+# 1b. ADMM segment, `group` scenarios per program
+# --------------------------------------------------------------------------
+
+def _check_group(B: int, group: int):
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    if B % group:
+        raise ValueError(f"batch {B} not divisible by group {group}")
+
+
+def admm_segment_grouped_plain(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b,
+                               z_b, y_b, *, sigma: float, alpha: float,
+                               length: int, group: int = 8):
+    """Plain PyTorch twin of :func:`admm_segment_grouped`: the batch cut into
+    [B/G, G, ...] groups, each group's G row-vector products x̃ = rhs·K⁻¹
+    taken together."""
+    B, P = Kinv_b.shape[0], Kinv_b.shape[-1]
+    _check_group(B, group)
+    n_g = B // group
+    Kg = Kinv_b.reshape(n_g, group, P, P)
+    q, lb, ub, rho, rhoi, x, z, y = (
+        v.reshape(n_g, group, P)
+        for v in (q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b, y_b))
+    for _ in range(int(length)):
+        rhs = sigma * x - q + rho * z - y
+        x_t = (rhs[:, :, None, :] @ Kg)[:, :, 0, :]
+        x_n = alpha * x_t + (1.0 - alpha) * x
+        z_rel = alpha * x_t + (1.0 - alpha) * z
+        z_un = z_rel + y * rhoi
+        z_n = torch.minimum(torch.maximum(z_un, lb), ub)
+        y = rho * (z_un - z_n)
+        x, z = x_n, z_n
+    return x.reshape(B, P), z.reshape(B, P), y.reshape(B, P)
+
+
+def admm_segment_grouped(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b,
+                         y_b, *, sigma: float, alpha: float, length: int,
+                         group: int = 8):
+    """Batched ADMM segment, ``group`` scenarios per program.
+
+    ``Kinv_b`` is [B, P, P], every vector [B, P] in the full layout, B
+    divisible by ``group``. Returns the updated ``(x, z, y)``, each [B, P].
+    On the card one thread block advances its ``group`` scenarios, so
+    ``group · P`` must fit a block's 1024 threads and ``group`` its 15 named
+    barriers (group ≤ 8 at P = 128); a larger group raises."""
+    B, P = Kinv_b.shape[0], Kinv_b.shape[-1]
+    _check_group(B, group)
+    if not _dispatch("admm_segment_grouped", Kinv_b):
+        return admm_segment_grouped_plain(
+            Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b, y_b,
+            sigma=sigma, alpha=alpha, length=length, group=group)
+    if P % 32 or P < 32:
+        raise ValueError(f"admm_segment_grouped: padded size {P} must be a "
+                         "positive multiple of 32")
+    if group * P > MAX_THREADS or group > MAX_NAMED_BARRIERS:
+        raise ValueError(
+            f"admm_segment_grouped: group {group} x padded size {P} does not "
+            f"fit one thread block ({MAX_THREADS} threads, "
+            f"{MAX_NAMED_BARRIERS} scenario barriers)")
+    vecs = dict(q_b=q_b, lb_b=lb_b, ub_b=ub_b, rho_b=rho_b, rhoi_b=rhoi_b,
+                x_b=x_b, z_b=z_b, y_b=y_b)
+    _check_segment(Kinv_b, vecs)
+    xo, zo, yo = (torch.empty_like(x_b) for _ in range(3))
+    fn = _lib("admm_segment_grouped").admm_segment_grouped_launch
+    with torch.cuda.device(Kinv_b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in (Kinv_b, q_b, lb_b, ub_b, rho_b,
+                                         rhoi_b, x_b, z_b, y_b, xo, zo, yo)),
+                B, P, int(group), float(sigma), float(alpha),
+                float(1.0 - alpha), int(length), stream)
+    _raise_on(rc, "admm_segment_grouped")
+    admm_segment_grouped.launches += 1
+    return xo, zo, yo
+
+
+admm_segment_grouped.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -288,4 +385,5 @@ woodbury_ns.launches = 0
 
 def reset_launches():
     admm_segment.launches = 0
+    admm_segment_grouped.launches = 0
     woodbury_ns.launches = 0

@@ -24,6 +24,11 @@ def skew(x):
     return _mat3([[z, -x2, x1], [x2, z, -x0], [-x1, x0, z]])
 
 
+def unskew(m):
+    """Skew-symmetric [..., 3, 3] -> [..., 3]."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
 def inv3(M):
     """Closed-form 3x3 inverse (adjugate / determinant), no pivoting; for
     well-conditioned physical matrices (inertia tensors, Euler-rate maps)."""
@@ -41,6 +46,29 @@ def inv3(M):
     I = a * e - b * d
     det = a * A + b * D + c * G
     return _mat3([[A, B, Cc], [D, E, F], [G, H, I]]) / det[..., None, None]
+
+
+def rotx(a):
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    return _mat3([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def roty(a):
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    return _mat3([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rotz(a):
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    return _mat3([[c, -s, z], [s, c, z], [z, z, o]])
+
+
+def rpy_to_matrix(rpy):
+    """RPY -> rotation matrix, R = Rz(y) Ry(p) Rx(r)."""
+    return rotz(rpy[..., 2]) @ roty(rpy[..., 1]) @ rotx(rpy[..., 0])
 
 
 def matrix_to_rpy(R):

@@ -9,6 +9,7 @@ import torch
 
 from ..core import constants as C
 from ..core.config import MPCConfig
+from ..core.types import index_tensor
 
 
 def state_weight_matrix(cfg: MPCConfig) -> np.ndarray:
@@ -56,8 +57,9 @@ def build_state_reference(cfg: MPCConfig, pos_ref, lin_ref, rpy_ref, ang_ref):
     """Expand the rolling window [B, 3, n_ref] into per-knot references
     [B, 26, nIter]: small-step knots track window column 0, large-step knot
     i tracks column i − nIterSmall."""
-    cols = [0 if i < cfg.n_iter_small else i - cfg.n_iter_small
-            for i in range(cfg.n_iter)]
+    cols = index_tensor(
+        tuple(0 if i < cfg.n_iter_small else i - cfg.n_iter_small
+              for i in range(cfg.n_iter)), pos_ref.device)
     B = pos_ref.shape[0]
     ref = torch.zeros((B, cfg.n_states, cfg.n_iter), dtype=pos_ref.dtype,
                       device=pos_ref.device)

@@ -16,7 +16,7 @@ import torch
 
 from ..core import constants as C
 from ..core.config import MPCConfig
-from ..core.types import RobotSnapshot
+from ..core.types import RobotSnapshot, const_tensor, index_tensor
 from ..ops import jet_model as jm
 from ..ops.so3 import euler_rate_matrix_inv, inv3, matrix_to_rpy, skew
 
@@ -82,7 +82,7 @@ def lambda_ang(cfg: MPCConfig, snap: RobotSnapshot, init: LambdaInit,
         term1 = -T * (skew(a_body) @ jac_rel_com)
         term2 = -T * (skew(r_body) @ skew(a_body) @ snap.rel_jac_ang)
         lam = (term1 + term2).sum(dim=1)
-    return lam[:, :, list(joint_sel)]
+    return lam[:, :, index_tensor(tuple(joint_sel), lam.device)]
 
 
 def linearize(cfg: MPCConfig, snap: RobotSnapshot, init: LambdaInit,
@@ -120,7 +120,7 @@ def linearize(cfg: MPCConfig, snap: RobotSnapshot, init: LambdaInit,
     rows_pe = cat(eye3, z(3, 23))
     rows_re = cat(z(3, 6), eye3, z(3, 17))
 
-    gravity = torch.tensor([0.0, 0.0, -9.81], dtype=dt_, device=dev)
+    gravity = const_tensor((0.0, 0.0, -9.81), dt_, dev)
     c_lin = (alpha_gravity[:, None] * snap.total_mass[:, None]
              * (R.mT @ gravity))
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F_
 
 from ..core import constants as C
 from ..core.config import MPCConfig
+from ..core.types import const_tensor, index_tensor
 from ..horizon.schedule import HorizonSchedule
 from ..ops import admm
 from ..ops import jet_model as jm
@@ -194,7 +195,7 @@ def condense(cfg: MPCConfig, sched: HorizonSchedule, lin: LinearizedDynamics,
     f_all = torch.stack(fs, dim=1)             # [B, nIter, 26]
     r = state_reference.mT                     # [B, nIter, 26]
     # contract only over weighted states (a static gather)
-    w_idx = list(weighted_state_indices(cfg))
+    w_idx = index_tensor(weighted_state_indices(cfg), dev)
     Fw = F_all[:, :, w_idx, :]
     qw = q_diag[w_idx]
     G = (Fw * qw[:, None]).flatten(1, 2)       # [B, nIter·nw, nU]
@@ -203,10 +204,8 @@ def condense(cfg: MPCConfig, sched: HorizonSchedule, lin: LinearizedDynamics,
     q[:, :nj * ch] += joint_reg_grad.repeat(1, ch)
     q[:, nj * ch:nj * ch + nt] += throttle_init_grad
 
-    v_min = jm.throttle_to_v(torch.tensor(cfg.throttle_min, dtype=dt_,
-                                          device=dev))
-    v_max = jm.throttle_to_v(torch.tensor(cfg.throttle_max, dtype=dt_,
-                                          device=dev))
+    v_min = jm.throttle_to_v(const_tensor(cfg.throttle_min, dt_, dev))
+    v_max = jm.throttle_to_v(const_tensor(cfg.throttle_max, dt_, dev))
     v_applied = jm.throttle_to_v(throttle_cmd)
     nbt = nt * cfg.n_throttle_knots
     lb_t = v_min.expand(B, nbt).clone()
@@ -215,10 +214,10 @@ def condense(cfg: MPCConfig, sched: HorizonSchedule, lin: LinearizedDynamics,
     lb_t[:, :nt] = torch.where(pin, v_applied, lb_t[:, :nt])
     ub_t[:, :nt] = torch.where(pin, v_applied, ub_t[:, :nt])
     if cfg.use_joint_position_constraint:
-        q_min = torch.tensor(np.deg2rad(cfg.joint_pos_min_deg), dtype=dt_,
-                             device=dev)
-        q_max = torch.tensor(np.deg2rad(cfg.joint_pos_max_deg), dtype=dt_,
-                             device=dev)
+        q_min = const_tensor(
+            tuple(np.deg2rad(cfg.joint_pos_min_deg).tolist()), dt_, dev)
+        q_max = const_tensor(
+            tuple(np.deg2rad(cfg.joint_pos_max_deg).tolist()), dt_, dev)
         lb = torch.cat([(q_min - joint_pos_ctrl).repeat(1, ch), lb_t], dim=-1)
         ub = torch.cat([(q_max - joint_pos_ctrl).repeat(1, ch), ub_t], dim=-1)
     else:

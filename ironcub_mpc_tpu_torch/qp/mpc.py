@@ -20,7 +20,7 @@ import torch
 from .. import resolve_device
 from ..core import constants as C
 from ..core.config import MPCConfig
-from ..core.types import MPCCarry, MPCOutput, RobotSnapshot
+from ..core.types import MPCCarry, MPCOutput, RobotSnapshot, index_tensor
 from ..horizon.schedule import HorizonSchedule
 from ..ops import admm
 from ..ops import jet_model as jm
@@ -167,7 +167,7 @@ def _tick_prep(cfg, joint_sel, problem: MPCProblem, carry: MPCCarry,
 def condense_from_prep(cfg: MPCConfig, sched, joint_sel,
                        problem: MPCProblem, carry: MPCCarry, prep: TickPrep):
     """Per-tick gradients + exact state elimination."""
-    sel = list(joint_sel)
+    sel = index_tensor(tuple(joint_sel), carry.joints_pos_ref.device)
     q_diag = torch.diagonal(problem.Q)
     joint_reg_grad = cfg.weight_regularization_joint_pos * (
         carry.joints_pos_ref[:, sel] - problem.joint_pos_ref_ctrl)
@@ -219,7 +219,8 @@ def mpc_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel: Tuple[int, ...],
                                rho_scalar=csol.rho_scalar)
     to = nj * cfg.control_horizon
     return _finish_tick(
-        cfg, list(joint_sel), carry, csol.u[:, :nj], csol.u[:, to:to + nt],
+        cfg, index_tensor(tuple(joint_sel), carry.joints_pos_ref.device),
+        carry, csol.u[:, :nj], csol.u[:, to:to + nt],
         csol.states[:, 0, C.THRUST], csol.states[:, 0, C.THRUST_DOT],
         csol.states[:, -1], csol.status, csol.pri_res, csol.dua_res,
         csol.u, csol.y, csol.guard_fired)
@@ -287,7 +288,9 @@ def configure(cfg: MPCConfig, sched: HorizonSchedule,
 
     def f(a):
         if isinstance(a, torch.Tensor):
-            return a.to(device=dev, dtype=dtype)
+            # flags (the snapshot's on_ground) keep their type
+            return (a.to(device=dev, dtype=dtype) if a.is_floating_point()
+                    else a.to(device=dev))
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     snap0 = RobotSnapshot(*(None if t is None else f(t) for t in snap0))

@@ -1,1 +1,2 @@
-"""Recorded-flight replay (the trajectory loader is not ported yet)."""
+"""Recorded-flight replay, trajectories, the closed loop and the flight
+runner."""

@@ -1,9 +1,9 @@
-"""The port's two main-path kernels against the Pallas kernels they replace.
+"""The port's kernels' plain twins against the Pallas kernels they replace.
 
 On the CPU each wrapper in ``ironcub_mpc_tpu_torch.ops.kernels`` runs its
-plain PyTorch twin; that twin is held against ``pallas_solve.admm_segment``
-and ``pallas_solve.woodbury_ns`` run as tests/test_pallas_solve.py runs
-them (interpret mode, jitted, vmapped), at the shapes and tolerances of
+plain PyTorch twin; that twin is held against ``pallas_solve.admm_segment``,
+``pallas_solve.admm_segment_grouped`` and ``pallas_solve.woodbury_ns`` run
+as tests/test_pallas_solve.py runs them (interpret mode, jitted, vmapped), at the shapes and tolerances of
 that file. The CUDA kernels themselves are held against the twins on a
 card by tests/test_torch_kernels_gpu.py and chip_smoke.py.
 """
@@ -43,6 +43,53 @@ def test_admm_segment_twin_matches_pallas():
     # the tolerances of test_pallas_solve::test_admm_segment_matches_reference
     for g, r, atol in zip(got, ref, (2e-4, 2e-4, 2e-3)):
         np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("group", [8, 4])
+def test_admm_segment_grouped_twin_matches_pallas(group):
+    """B = 16 scenarios, ``group`` per program, against the Pallas grouped
+    kernel in interpret mode; the tolerances of
+    test_pallas_solve::test_admm_segment_grouped_matches_single."""
+    batch, length = 16, 9
+    ins = _segment_inputs(7, batch)
+    ref = pallas_solve.admm_segment_grouped(
+        *(jnp.asarray(v) for v in ins.values()), sigma=SIGMA, alpha=ALPHA,
+        length=length, group=group)
+    tins = [torch.as_tensor(v) for v in ins.values()]
+    before = kernels.admm_segment_grouped.launches
+    got = kernels.admm_segment_grouped(*tins, sigma=SIGMA, alpha=ALPHA,
+                                       length=length, group=group)
+    assert kernels.admm_segment_grouped.launches == before   # the twin ran
+    for g, r in zip(got, ref):
+        assert g.shape == (batch, P)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-4)
+    # and against the single-scenario twin on the same inputs
+    single = kernels.admm_segment(*tins, sigma=SIGMA, alpha=ALPHA,
+                                  length=length)
+    for g, r in zip(got, single):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=1e-5)
+
+
+def test_admm_segment_grouped_refuses_a_ragged_batch():
+    """``B % group`` must be 0, on the twin's path as on the JAX wrapper."""
+    ins = _segment_inputs(7, 6)
+    with pytest.raises(ValueError, match="not divisible"):
+        pallas_solve.admm_segment_grouped(
+            *(jnp.asarray(v) for v in ins.values()), sigma=SIGMA,
+            alpha=ALPHA, length=2, group=4)
+    tins = [torch.as_tensor(v) for v in ins.values()]
+    for fn in (kernels.admm_segment_grouped,
+               kernels.admm_segment_grouped_plain):
+        with pytest.raises(ValueError, match="batch 6 not divisible by "
+                                             "group 4"):
+            fn(*tins, sigma=SIGMA, alpha=ALPHA, length=2, group=4)
+    with pytest.raises(ValueError, match="group must be >= 1"):
+        kernels.admm_segment_grouped(*tins, sigma=SIGMA, alpha=ALPHA,
+                                     length=2, group=0)
+    out = kernels.admm_segment_grouped(*tins, sigma=SIGMA, alpha=ALPHA,
+                                       length=2, group=3)
+    assert out[0].shape == (6, P)
 
 
 @pytest.mark.parametrize("n_ns", [0, 1, 2])
@@ -91,6 +138,9 @@ def test_wrappers_raise_on_a_device_without_kernel():
     with pytest.raises(RuntimeError, match="no kernel"):
         kernels.admm_segment(*ins.values(), sigma=SIGMA, alpha=ALPHA,
                              length=3)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kernels.admm_segment_grouped(*ins.values(), sigma=SIGMA, alpha=ALPHA,
+                                     length=3, group=1)
     m = torch.empty((1, P, P), device="meta")
     v = torch.empty((1, P), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):

@@ -108,6 +108,46 @@ def test_admm_segment_cuda_matches_twin(cuda, batch, length):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch,length,group",
+                         [(512, 40, 8), (256, 5, 8), (16, 7, 4), (6, 3, 2),
+                          (5, 3, 1)])
+def test_admm_segment_grouped_cuda_matches_twin_and_single(cuda, batch,
+                                                           length, group):
+    ins = {k: torch.as_tensor(v) for k, v in
+           _segment_inputs(4, batch, nu=120, box0=96).items()}
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=length)
+    ref = kernels.admm_segment_grouped_plain(*ins.values(), group=group, **kw)
+    on_card = [v.to(cuda) for v in ins.values()]
+    before = kernels.admm_segment_grouped.launches
+    got = kernels.admm_segment_grouped(*on_card, group=group, **kw)
+    single = kernels.admm_segment(*on_card, **kw)
+    torch.cuda.synchronize()
+    assert kernels.admm_segment_grouped.launches == before + 1
+    for g, r, s in zip(got, ref, single):
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-4)
+        # the same summation order as the single-scenario kernel
+        np.testing.assert_allclose(g.cpu().numpy(), s.cpu().numpy(), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_admm_segment_grouped_cuda_refuses_what_does_not_fit(cuda):
+    """A group that does not fit one thread block raises; nothing falls back
+    to another kernel or to the twin."""
+    ins = [torch.as_tensor(v).to(cuda) for v in
+           _segment_inputs(4, 32, nu=120, box0=96).values()]
+    before = kernels.admm_segment_grouped.launches
+    with pytest.raises(ValueError, match="does not fit one thread block"):
+        kernels.admm_segment_grouped(*ins, sigma=SIGMA, alpha=ALPHA, length=2,
+                                     group=16)
+    with pytest.raises(ValueError, match="not divisible"):
+        kernels.admm_segment_grouped(*ins, sigma=SIGMA, alpha=ALPHA, length=2,
+                                     group=5)
+    assert kernels.admm_segment_grouped.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("nu,box0", SHAPES, ids=["stock", "wide"])
 @pytest.mark.parametrize("n_ns", [0, 1])
 def test_woodbury_ns_cuda_matches_twin(cuda, nu, box0, n_ns):

@@ -94,10 +94,15 @@ def _port_modules():
 
 
 def test_port_never_imports_jax():
-    """Every module of the port and chip_smoke.py import with JAX and the
-    JAX package blocked."""
+    """Every module of the port, chip_smoke.py and the port's tools import
+    with JAX and the JAX package blocked."""
     mods = _port_modules()
-    assert "ironcub_mpc_tpu_torch.ops.kernels" in mods
+    for m in ("ops.kernels", "dynamics.kinodynamics", "dynamics.wrenches",
+              "dynamics.model", "dynamics.urdf", "dynamics.urdf_export",
+              "dynamics.ironcub_model", "runtime.trajectory", "runtime.loop",
+              "runtime.flight", "sim.jet_lstm", "sim.ekf", "sim.plant",
+              "convert"):
+        assert f"ironcub_mpc_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib, runpy\n"
         "for m in ('jax', 'jaxlib', 'ironcub_mpc_tpu'):\n"
@@ -105,6 +110,8 @@ def test_port_never_imports_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "runpy.run_path('tools/bench_segment_kernels_torch.py', "
+        "run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ironcub_mpc_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
