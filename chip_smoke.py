@@ -12,7 +12,15 @@ Phases (any failure exits non-zero):
 2. kernels   run each kernel against its plain PyTorch twin on the same
              CUDA tensors at the shapes its path gives it; time kernel,
              twin, the card's bound and, where one exists, a single PyTorch
-             call that computes the same function. The grouped segment is
+             call that computes the same function. Every variant a wrapper
+             can choose (admm_segment: K⁻¹ in registers at P = 128, streamed
+             through L2 at P = 256; woodbury_ns: one block or a cluster of 8
+             at P = 128, a cluster of 8 at P = 256) is held against the twin
+             and timed as well, at batch 1, 64 and 256. The
+             previous design's times stand beside the new ones, and the
+             script fails where a kernel is more than 10 % slower than its
+             previous design at a main-path shape, or where woodbury_ns at
+             n_box 120 loses to torch.linalg.inv_ex. The grouped segment is
              also held against, and timed beside, the single-scenario
              kernel and the stock-PyTorch loop.
 3. segments  the segment head-to-head entry point
@@ -63,6 +71,7 @@ FP32_OPS_PER_S = 67e12
 
 SIGMA, ALPHA = 1e-6, 1.6
 P, NU, BOX0 = 128, 120, 96          # stock condensed layout, lane-padded
+P2, NU2, BOX02 = 256, 240, 192      # twice the stock horizon
 BENCH = dict(max_iter=40, polish=True, rho_update_iters=(15,),
              kinv_guard=True, ns_skip_tol=0.02, term_check_every=5,
              kernel_mode="auto")
@@ -74,6 +83,20 @@ SEG_BATCH, SEG_ITERS, GROUP = 512, 40, 8
 FLIGHT_B1_S, FLIGHT_SETTLE_S = 2.0, 2.0
 FLIGHT_BATCH, FLIGHT_SLICE_S, WIND_STD_N = 64, 20.0, 2.0
 FLIGHT_DEADLINE_S = 600.0
+
+# Device ms of the previous designs of admm_segment (K⁻¹ in shared memory, one
+# thread per coordinate) and woodbury_ns (intermediates in a device-memory
+# scratch, one block of 4 × 4 register tiles per scenario) from this script's
+# phase 2 on PREVIOUS_CARD, keyed by batch; the new designs are held to them
+# at the main path's shapes.
+PREVIOUS_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PREVIOUS_MS = {
+    ("admm_segment", 5): {1: 0.0129, 64: 0.0132, 256: 0.0142},
+    ("woodbury_ns", 24, 1): {1: 0.1836, 64: 0.1857, 256: 0.3095},
+    ("woodbury_ns", 24, 0): {1: 0.0625, 64: 0.0634, 256: 0.0969},
+    ("woodbury_ns", 120, 1): {256: 2.547},
+}
+SLOWER_THAN_PREVIOUS = 1.10
 
 
 def check(cond, msg):
@@ -150,145 +173,201 @@ def _kinv(H, rho_full, dev):
     return (0.5 * (Ki + Ki.mT)).float()
 
 
-def _pad(A):
-    pad = P - A.shape[-1]
+def _pad(A, p):
+    pad = p - A.shape[-1]
     return torch.nn.functional.pad(A, (0, pad, 0, pad)).contiguous()
 
 
-def segment_inputs(batch, seed, dev):
+def segment_inputs(batch, seed, dev, nu=NU, box0=BOX0, p=P):
     g = torch.Generator().manual_seed(seed)
-    nb = NU - BOX0
-    H = _spd(g, batch, NU, "cpu")
+    nb = nu - box0
+    H = _spd(g, batch, nu, "cpu")
     rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     rho = rnd(batch, nb).abs() + 0.1
-    rho_full = torch.zeros(batch, NU, dtype=torch.float64)
-    rho_full[:, BOX0:] = rho.double()
+    rho_full = torch.zeros(batch, nu, dtype=torch.float64)
+    rho_full[:, box0:] = rho.double()
 
     def full(v, fill=0.0):
-        out = torch.full((batch, P), fill)
-        out[:, NU:] = 0.0
-        out[:, BOX0:NU] = v
+        out = torch.full((batch, p), fill)
+        out[:, nu:] = 0.0
+        out[:, box0:nu] = v
         return out
 
-    ins = dict(Kinv_p=_pad(_kinv(H, rho_full, "cpu")),
+    ins = dict(Kinv_p=_pad(_kinv(H, rho_full, "cpu"), p),
                q_f=full(torch.zeros(batch, nb)),
                lb_f=full(-rnd(batch, nb).abs(), -1e20),
                ub_f=full(rnd(batch, nb).abs(), 1e20),
                rho_f=full(rho), rhoi_f=full(1.0 / rho),
-               x_f=torch.zeros(batch, P), z_f=full(rnd(batch, nb)),
+               x_f=torch.zeros(batch, p), z_f=full(rnd(batch, nb)),
                y_f=full(rnd(batch, nb)))
-    ins["q_f"][:, :NU] = rnd(batch, NU)
-    ins["x_f"][:, :NU] = rnd(batch, NU)
+    ins["q_f"][:, :nu] = rnd(batch, nu)
+    ins["x_f"][:, :nu] = rnd(batch, nu)
     return {k: v.contiguous().to(dev) for k, v in ins.items()}
 
 
-def woodbury_inputs(batch, box0, seed, dev):
+def woodbury_inputs(batch, box0, seed, dev, nu=NU, p=P):
     g = torch.Generator().manual_seed(seed)
-    nb = NU - box0
-    H = _spd(g, batch, NU, "cpu")
+    nb = nu - box0
+    H = _spd(g, batch, nu, "cpu")
     rho_old = torch.rand(batch, nb, generator=g, dtype=torch.float64) + 0.1
     rho_new = rho_old * (0.2 + 4.8 * torch.rand(batch, nb, generator=g,
                                                 dtype=torch.float64))
 
     def full(v):
-        out = torch.zeros(batch, P)
-        out[:, box0:NU] = v.float()
+        out = torch.zeros(batch, p)
+        out[:, box0:nu] = v.float()
         return out
 
-    rf = torch.zeros(batch, NU, dtype=torch.float64)
+    rf = torch.zeros(batch, nu, dtype=torch.float64)
     rf[:, box0:] = rho_old
-    ins = dict(Kinv_p=_pad(_kinv(H, rf, "cpu")), H_p=_pad(H.float()),
+    ins = dict(Kinv_p=_pad(_kinv(H, rf, "cpu"), p), H_p=_pad(H.float(), p),
                d_f=full(rho_new - rho_old), rho_f=full(rho_new))
     return {k: v.contiguous().to(dev) for k, v in ins.items()}
 
 
-def segment_bound(batch, length):
-    n_bytes = 4 * (batch * P * P + 8 * batch * P + 3 * batch * P)
+def segment_bound(batch, length, p=P):
+    n_bytes = 4 * (batch * p * p + 8 * batch * p + 3 * batch * p)
     # per iteration: the P×P mat-vec (2P² operations) and ~12 elementwise
     # operations per coordinate
-    n_ops = batch * length * (2 * P * P + 12 * P)
+    n_ops = batch * length * (2 * p * p + 12 * p)
     return bound_ms(n_bytes, n_ops)
 
 
-def woodbury_bound(batch, n_box, n_ns):
+def woodbury_bound(batch, n_box, n_ns, p=P):
     # K⁻¹ in, the result out, d and ρ; H only where Newton–Schulz reads it
-    n_bytes = 4 * batch * ((3 if n_ns else 2) * P * P + 2 * P)
+    n_bytes = 4 * batch * ((3 if n_ns else 2) * p * p + 2 * p)
     n = n_box
     # Gauss–Jordan 4n³, W = M⁻¹(d⊙K⁻¹[box,:]) 2n²P, the rank-n update
     # 2P²n, two P³ products per Newton–Schulz step, the symmetrisation
-    n_ops = batch * (4 * n ** 3 + 2 * n * n * P + 2 * P * P * n
-                     + n_ns * 4 * P ** 3 + 2 * P * P)
+    n_ops = batch * (4 * n ** 3 + 2 * n * n * p + 2 * p * p * n
+                     + n_ns * 4 * p ** 3 + 2 * p * p)
     return bound_ms(n_bytes, n_ops)
+
+
+def _previous(row):
+    """The previous design's ms at this row's shape, where it was timed."""
+    if row["P"] != P:
+        return None
+    if row["name"] == "admm_segment":
+        key = ("admm_segment", row["length"])
+    else:
+        key = ("woodbury_ns", row["n_box"], row["n_ns"])
+    return PREVIOUS_MS.get(key, {}).get(row["batch"])
+
+
+def segment_row(K, ins, batch, length, p=P):
+    """One admm_segment row: the kernel against the twin, its time and its
+    bound."""
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=length)
+    got = K.admm_segment(*ins, **kw)
+    ref = K.admm_segment_plain(*ins, **kw)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    tol = 1e-4
+    variant = K.segment_plan(batch, p)["variant"]
+    ok = all(bool(torch.isfinite(a).all()) for a in got)
+    check(ok and err <= tol, f"admm_segment B={batch} P={p} L={length} "
+          f"{variant}: err {err:.3e} > {tol}")
+    bms, by = segment_bound(batch, length, p)
+    return dict(
+        name="admm_segment", batch=batch, length=length, P=p, variant=variant,
+        forced=False, max_abs_err=err, tol=tol,
+        ms=cuda_ms(lambda: K.admm_segment(*ins, **kw)),
+        plain_ms=cuda_ms(lambda: K.admm_segment_plain(*ins, **kw), reps=10),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def woodbury_row(K, ins, batch, box0, nb, n_ns, cluster=None, ref=None):
+    """One woodbury_ns row: the kernel on a cluster of ``cluster`` blocks
+    (or the plan's choice) against the twin ``ref``, its time and bound."""
+    p = ins[0].shape[-1]
+    kw = dict(box0=box0, n_box=nb, sigma=SIGMA, n_ns=n_ns)
+    got = K.woodbury_ns(*ins, cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    tol = 1e-4
+    chosen = K.woodbury_plan(batch, p, nb, n_ns, cluster)["cluster"]
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"woodbury_ns B={batch} P={p} box0={box0} n_ns={n_ns} "
+          f"cluster={chosen}: err {err:.3e} > {tol}")
+    bms, by = woodbury_bound(batch, nb, n_ns, p)
+    return dict(
+        name="woodbury_ns", batch=batch, P=p, box0=box0, n_box=nb, n_ns=n_ns,
+        cluster=chosen, forced=cluster is not None, max_abs_err=err, tol=tol,
+        ms=cuda_ms(lambda: K.woodbury_ns(*ins, cluster=cluster, **kw)),
+        plain_ms=None, bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def phase_kernels(K, dev, record):
     rows = []
-    # batch 1 and FLIGHT_BATCH are the closed loop's shapes, BATCH the replay's
+    # batch 1 and FLIGHT_BATCH are the closed loop's shapes, BATCH the
+    # replay's; (P, NU, BOX0) is the stock layout, (P2, NU2, BOX02) twice the
+    # stock horizon, where the segment streams K⁻¹ and the refresh needs a
+    # cluster
     for batch in (1, FLIGHT_BATCH, BATCH):
-        ins = segment_inputs(batch, 10 + batch, dev)
+        ins = list(segment_inputs(batch, 10 + batch, dev).values())
         for length in (5, 15):
-            kw = dict(sigma=SIGMA, alpha=ALPHA, length=length)
-            got = K.admm_segment(*ins.values(), **kw)
-            ref = K.admm_segment_plain(*ins.values(), **kw)
-            torch.cuda.synchronize()
-            err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-            tol = 1e-4
-            ok = all(bool(torch.isfinite(a).all()) for a in got)
-            check(ok and err <= tol,
-                  f"admm_segment B={batch} L={length}: err {err:.3e} > {tol}")
-            bms, by = segment_bound(batch, length)
-            rows.append(dict(
-                name="admm_segment", batch=batch, length=length,
-                max_abs_err=err, tol=tol,
-                ms=cuda_ms(lambda: K.admm_segment(*ins.values(), **kw)),
-                plain_ms=cuda_ms(lambda: K.admm_segment_plain(
-                    *ins.values(), **kw), reps=10),
-                bound_ms=bms, bound_by=by, library_ms=None))
+            rows.append(segment_row(K, ins, batch, length))
+        ins = list(segment_inputs(batch, 40 + batch, dev, NU2, BOX02,
+                                  P2).values())
+        rows.append(segment_row(K, ins, batch, 5, p=P2))
     for batch in (1, FLIGHT_BATCH, BATCH):
-        for box0 in (BOX0, 0):
-            ins = woodbury_inputs(batch, box0, 20 + box0 + batch, dev)
-            nb = NU - box0
-            K_new = (ins["H_p"][:, :NU, :NU]
-                     + SIGMA * torch.eye(NU, device=dev)
-                     + torch.diag_embed(ins["rho_f"][:, :NU])).contiguous()
+        for nu, box0, p in ((NU, BOX0, P), (NU, 0, P), (NU2, BOX02, P2)):
+            ins = list(woodbury_inputs(batch, box0, 20 + box0 + batch, dev,
+                                       nu, p).values())
+            nb = nu - box0
+            K_new = (ins[1][:, :nu, :nu] + SIGMA * torch.eye(nu, device=dev)
+                     + torch.diag_embed(ins[3][:, :nu])).contiguous()
             for n_ns in (0, 1):
                 kw = dict(box0=box0, n_box=nb, sigma=SIGMA, n_ns=n_ns)
-                got = K.woodbury_ns(*ins.values(), **kw)
-                ref = K.woodbury_ns_plain(*ins.values(), **kw)
-                torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                tol = 1e-4
-                check(bool(torch.isfinite(got).all()) and err <= tol,
-                      f"woodbury_ns B={batch} box0={box0} n_ns={n_ns}: "
-                      f"err {err:.3e} > {tol}")
-                bms, by = woodbury_bound(batch, nb, n_ns)
-                rows.append(dict(
-                    name="woodbury_ns", batch=batch, box0=box0, n_box=nb,
-                    n_ns=n_ns, max_abs_err=err, tol=tol,
-                    ms=cuda_ms(lambda: K.woodbury_ns(*ins.values(), **kw)),
-                    plain_ms=cuda_ms(lambda: K.woodbury_ns_plain(
-                        *ins.values(), **kw), reps=10),
-                    bound_ms=bms, bound_by=by,
-                    # the batched inverse of K(ρ_new) computes the same
-                    # function; timed here as a yardstick only (inv_ex:
-                    # inv would read its error flag back on the host)
-                    library_ms=cuda_ms(lambda: torch.linalg.inv_ex(K_new),
-                                       reps=10)))
+                ref = K.woodbury_ns_plain(*ins, **kw)
+                row = woodbury_row(K, ins, batch, box0, nb, n_ns, ref=ref)
+                row["plain_ms"] = cuda_ms(
+                    lambda: K.woodbury_ns_plain(*ins, **kw), reps=10)
+                # the batched inverse of K(ρ_new) computes the same
+                # function; timed here as a yardstick only (inv_ex: inv
+                # would read its error flag back on the host)
+                row["library_ms"] = cuda_ms(
+                    lambda: torch.linalg.inv_ex(K_new), reps=10)
+                rows.append(row)
+                # the cluster size the plan did not choose
+                for c in K.WOODBURY_CLUSTERS[p]:
+                    if c != row["cluster"]:
+                        rows.append(woodbury_row(K, ins, batch, box0, nb,
+                                                 n_ns, cluster=c, ref=ref))
     rows += grouped_rows(K, dev)
+    slow = []
     for r in rows:
         shape = ", ".join(f"{k}={r[k]}" for k in
-                          ("batch", "length", "group", "box0", "n_box",
-                           "n_ns") if k in r)
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[kernels] {r['name']}({shape}): err {r['max_abs_err']:.2e} "
-              f"(tol {r['tol']:.0e})  kernel {r['ms']:.4f} ms  twin "
-              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})  library {lib} ms")
+                          ("batch", "length", "group", "P", "variant", "box0",
+                           "n_box", "n_ns", "cluster") if k in r)
+        opt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
+        line = (f"[kernels] {r['name']}({shape}): err {r['max_abs_err']:.2e} "
+                f"(tol {r['tol']:.0e})  kernel {r['ms']:.4f} ms  twin "
+                f"{opt(r['plain_ms'])} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})  library {opt(r['library_ms'])} ms")
+        prev = None if r.get("forced", True) else _previous(r)
+        if prev is not None:
+            r["previous_ms"] = prev
+            line += f"  previous design {prev:.4f} ms ({PREVIOUS_CARD})"
+            main_path = r["name"] == "admm_segment" or r["n_box"] == NU - BOX0
+            if main_path and r["ms"] > SLOWER_THAN_PREVIOUS * prev:
+                slow.append(f"{r['name']}({shape}) {r['ms']:.4f} ms against "
+                            f"{prev:.4f} ms")
+        print(line)
         if "single_ms" in r:
             print(f"[kernels]   same shape: admm_segment "
                   f"{r['single_ms']:.4f} ms, torch-bmm loop "
                   f"{r['bmm_ms']:.4f} ms; err vs admm_segment "
                   f"{r['err_vs_single']:.2e}")
+    check(not slow, "slower than the previous design by more than 10 %: "
+          + "; ".join(slow))
+    wide = next(r for r in rows if r["name"] == "woodbury_ns"
+                and not r["forced"] and r["batch"] == BATCH and r["P"] == P
+                and r["n_box"] == NU and r["n_ns"] == 1)
+    check(wide["ms"] <= wide["library_ms"],
+          f"woodbury_ns at n_box {NU}, batch {BATCH}: {wide['ms']:.4f} ms "
+          f"loses to torch.linalg.inv_ex, {wide['library_ms']:.4f} ms")
     record["kernels"] = rows
     return rows
 
@@ -521,12 +600,18 @@ def profile_window(run, n=10):
     on_card = [ev for ev in events
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(ev.self_device_time_total for ev in on_card)
+    # a wrapper's launches, over every instantiation of its kernel
     ours = {}
     for ev in on_card:
-        for name in ("admm_segment_kernel", "woodbury_ns_kernel"):
-            if name in ev.key:
-                ours[name] = dict(calls=ev.count, mean_ms=(
-                    ev.self_device_time_total / 1e3 / ev.count))
+        for name, marks in (("admm_segment", ("admm_segment_reg_kernel",
+                                              "admm_segment_streamed_kernel")),
+                            ("woodbury_ns", ("woodbury_ns_kernel",))):
+            if any(m in ev.key for m in marks):
+                k = ours.setdefault(name, dict(calls=0, total_ms=0.0))
+                k["calls"] += ev.count
+                k["total_ms"] += ev.self_device_time_total / 1e3
+    for k in ours.values():
+        k["mean_ms"] = k["total_ms"] / k["calls"]
     waits = {ev.key: ev.count for ev in events
              if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                            "aten::item", "cudaMemcpyAsync")}
@@ -812,9 +897,10 @@ def main():
     # Woodbury refresh with one Newton–Schulz step (the polish operator,
     # n_ns=0, is in the record); the grouped segment at the head-to-head
     # shape. Launches: the sum over the paths that run the kernel.
-    pick = {"admm_segment": dict(batch=BATCH, length=5),
+    pick = {"admm_segment": dict(batch=BATCH, length=5, P=P, forced=False),
             "admm_segment_grouped": dict(batch=SEG_BATCH, length=SEG_ITERS),
-            "woodbury_ns": dict(batch=BATCH, box0=BOX0, n_ns=1)}
+            "woodbury_ns": dict(batch=BATCH, P=P, box0=BOX0, n_ns=1,
+                                forced=False)}
     replaces = {
         "admm_segment": "ironcub_mpc_tpu/ops/pallas_solve.py:108",
         "admm_segment_grouped": "ironcub_mpc_tpu/ops/pallas_solve.py:163",

@@ -7,9 +7,13 @@ The layout mirrors the JAX package so each counterpart is found by name:
                and the tensor containers of the tick.
 - ``horizon``  the variable-sampling-time schedule (copied, numpy-only).
 - ``ops``      SO(3)/RPY algebra, the jet polynomial, solver settings and
-               the two CUDA kernels with their plain PyTorch twins.
+               the three CUDA kernels (``csrc/``) with their launch plans
+               and plain PyTorch twins.
 - ``qp``       linearisation, condensing, the box-QP solve and the tick.
-- ``runtime``  the recorded-flight replay loader.
+- ``dynamics`` kinodynamics of the reduced URDF model and the wrenches.
+- ``sim``      the 1 kHz rigid-body plant with LSTM+EKF jets.
+- ``runtime``  the recorded-flight replay loader, the mission trajectories,
+               the closed loop and the flight runner.
 - ``convert``  state carried across from the JAX package as numpy arrays.
 
 Functions take tensors with a leading batch dimension (one lane per

@@ -1,68 +1,165 @@
 // admm_segment — `length` over-relaxed ADMM iterations of the condensed
-// box QP, one scenario per thread block, K⁻¹ resident in shared memory.
+// box QP, one scenario per thread block, K⁻¹ resident on the SM.
 //
 // Replaces the TPU kernel ironcub_mpc_tpu/ops/pallas_solve.py
 // `admm_segment` (body `_segment_kernel`). Per iteration, in the full
 // padded layout (ρ = 1/ρ = 0 and bounds ±inf_bound outside the box):
-//   rhs = σx − q + ρz − y;  x̃ = rhs·K⁻¹   (row-vector form, as on the TPU)
+//   rhs = σx − q + ρz − y;  x̃ = rhs·K⁻¹   (row-vector form, as on the TPU:
+//                                           the recovery inverse is not symmetric)
 //   x ← αx̃ + (1−α)x;  z_un = αx̃ + (1−α)z + y·ρ⁻¹
 //   z ← clip(z_un, lb, ub);  y ← ρ(z_un − z)
 //
-// What bounds it on an H100: the bytes of K⁻¹. Each iteration is a P×P
-// mat-vec (2P² FLOP) against a matrix that does not change during the
-// segment, so re-reading K⁻¹ from device memory every iteration would make
-// the kernel memory-bound `length` times over. The design keeps K⁻¹ in
-// shared memory for the whole segment (128·128·4 = 64 KB for the stock
-// P = 128), so device memory is read once per segment: at B = 256 that is
-// 16.8 MB, about 5 µs at 3.35 TB/s, against 42 MFLOP (under 1 µs at the
-// fp32 peak) for length 5. At B = 1 the kernel runs on one SM and is bound
-// by the latency of its `length` dependent mat-vecs.
+// What bounds it on an H100: the bytes of K⁻¹ (64 KB a scenario at P = 128,
+// read once a segment) when the card is full, and the latency of `length`
+// dependent mat-vecs when it is not (batch 1 runs on one SM). Two variants,
+// chosen by the padded size (mirrored by ops/kernels.segment_plan):
 //
-// Layout: grid B, one thread per padded coordinate (blockDim = P). Thread j
-// keeps x_j, z_j, y_j and its bounds in registers; rhs goes through a [P]
-// shared buffer; x̃_j = Σ_i rhs_i·K⁻¹[i, j] reads row i across the block, so
-// neighbouring threads read neighbouring words (no bank conflicts). Plain
-// fp32 FMA on CUDA cores, no TF32. When K⁻¹ does not fit in shared memory
-// (P > 128) it is read from device memory (through L2) instead.
+// - "registers" (P = 128): 512 threads a scenario keep K⁻¹ in registers for
+//   the whole segment, 32 entries each, loaded straight from device memory
+//   with eight 16-byte loads in flight a thread. Warp w owns the columns
+//   8w..8w+7, lane l the rows 4l..4l+3. An iteration reads only rhs, one
+//   float4 a thread from a double-buffered 512-byte shared array, runs 32
+//   FMAs in eight independent accumulators, and sums the 32 row parts of a
+//   column with a transposing shuffle reduction (9 shuffles for 8 columns),
+//   in a fixed order. The four lanes that end up with column 8w + l/4 all
+//   carry its x, z, y, bounds and ρ in registers and update them alike; the
+//   first of them writes the next rhs. One __syncthreads() an iteration.
+//   ~1 KB of shared memory and at most 64 registers: two blocks an SM, so
+//   256 scenarios are one wave.
+// - "streamed" (any other P up to 1024): one thread per coordinate, K⁻¹
+//   re-read through L2 every iteration.
+// Plain fp32 FMA on CUDA cores throughout, no TF32.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxSmem = 232448;  // 227 KB per block on Hopper
+constexpr int kRegP = 128;        // padded size of the register variant
+constexpr int kRegThreads = 512;  // 16 warps x (8 columns, 32 row parts)
 
 // clip(v, lo, hi) = min(max(v, lo), hi) with NaN propagated, as jnp.clip
 __device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
   return v != v ? v : fminf(fmaxf(v, lo), hi);
 }
 
-__global__ void admm_segment_kernel(
+// the vector half of one iteration for one coordinate, from x̃_j
+__device__ __forceinline__ void admm_update(float xt, float lb, float ub,
+                                            float rho, float rhoi, float alpha,
+                                            float one_minus_alpha, float& x,
+                                            float& z, float& y) {
+  const float x_n = alpha * xt + one_minus_alpha * x;
+  const float z_un = alpha * xt + one_minus_alpha * z + y * rhoi;
+  const float z_n = clip_nan(z_un, lb, ub);
+  y = rho * (z_un - z_n);
+  x = x_n;
+  z = z_n;
+}
+
+__global__ void __launch_bounds__(kRegThreads, 2) admm_segment_reg_kernel(
+    const float* __restrict__ kinv, const float* __restrict__ q,
+    const float* __restrict__ lb, const float* __restrict__ ub,
+    const float* __restrict__ rho, const float* __restrict__ rhoi,
+    const float* __restrict__ x0, const float* __restrict__ z0,
+    const float* __restrict__ y0, float* __restrict__ xo,
+    float* __restrict__ zo, float* __restrict__ yo, float sigma, float alpha,
+    float one_minus_alpha, int length) {
+  __shared__ float4 s_rhs[2][kRegP / 4];
+  const unsigned kFull = 0xffffffffu;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float* kb = kinv + static_cast<size_t>(b) * kRegP * kRegP;
+
+  // K⁻¹[4·lane + a, 8·warp .. 8·warp + 7], a = 0..3
+  float4 k[4][2];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float4* row = reinterpret_cast<const float4*>(
+        kb + (4 * lane + a) * kRegP + 8 * warp);
+    k[a][0] = __ldg(row);
+    k[a][1] = __ldg(row + 1);
+  }
+
+  // the coordinate whose column sum the reduction leaves in this lane
+  const int j = 8 * warp + (lane >> 2);
+  const bool writer = (lane & 3) == 0;
+  const size_t v = static_cast<size_t>(b) * kRegP + j;
+  const float qj = q[v], lbj = lb[v], ubj = ub[v];
+  const float rj = rho[v], rij = rhoi[v];
+  float x = x0[v], z = z0[v], y = y0[v];
+  const bool up16 = (lane & 16) != 0, up8 = (lane & 8) != 0,
+             up4 = (lane & 4) != 0;
+
+  for (int it = 0; it < length; ++it) {
+    float* rhs_w = reinterpret_cast<float*>(s_rhs[it & 1]);
+    if (writer) rhs_w[j] = sigma * x - qj + rj * z - y;
+    __syncthreads();
+    const float4 r = s_rhs[it & 1][lane];
+    const float rr[4] = {r.x, r.y, r.z, r.w};
+    float acc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      acc[0] = fmaf(rr[a], k[a][0].x, acc[0]);
+      acc[1] = fmaf(rr[a], k[a][0].y, acc[1]);
+      acc[2] = fmaf(rr[a], k[a][0].z, acc[2]);
+      acc[3] = fmaf(rr[a], k[a][0].w, acc[3]);
+      acc[4] = fmaf(rr[a], k[a][1].x, acc[4]);
+      acc[5] = fmaf(rr[a], k[a][1].y, acc[5]);
+      acc[6] = fmaf(rr[a], k[a][1].z, acc[6]);
+      acc[7] = fmaf(rr[a], k[a][1].w, acc[7]);
+    }
+    // sum over the 32 lanes, halving the columns a lane keeps at each of the
+    // first three steps: lane l ends with column l / 4
+    float v4[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float send = up16 ? acc[i] : acc[i + 4];
+      const float keep = up16 ? acc[i + 4] : acc[i];
+      v4[i] = keep + __shfl_xor_sync(kFull, send, 16);
+    }
+    float v2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float send = up8 ? v4[i] : v4[i + 2];
+      const float keep = up8 ? v4[i + 2] : v4[i];
+      v2[i] = keep + __shfl_xor_sync(kFull, send, 8);
+    }
+    const float send = up4 ? v2[0] : v2[1];
+    const float keep = up4 ? v2[1] : v2[0];
+    float xt = keep + __shfl_xor_sync(kFull, send, 4);
+    xt += __shfl_xor_sync(kFull, xt, 2);
+    xt += __shfl_xor_sync(kFull, xt, 1);
+    admm_update(xt, lbj, ubj, rj, rij, alpha, one_minus_alpha, x, z, y);
+  }
+  if (writer) {
+    xo[v] = x;
+    zo[v] = z;
+    yo[v] = y;
+  }
+}
+
+// one thread per coordinate; K⁻¹ is read from device memory through L2 every
+// iteration
+__global__ void admm_segment_streamed_kernel(
     const float* __restrict__ kinv, const float* __restrict__ q,
     const float* __restrict__ lb, const float* __restrict__ ub,
     const float* __restrict__ rho, const float* __restrict__ rhoi,
     const float* __restrict__ x0, const float* __restrict__ z0,
     const float* __restrict__ y0, float* __restrict__ xo,
     float* __restrict__ zo, float* __restrict__ yo, int P, float sigma,
-    float alpha, float one_minus_alpha, int length, bool resident) {
+    float alpha, float one_minus_alpha, int length) {
   extern __shared__ float smem[];
-  float* s_rhs = smem;      // [P]
-  float* s_k = smem + P;    // [P, P] when resident
+  float* s_rhs = smem;  // [P]
   const int b = blockIdx.x;
   const int j = threadIdx.x;
-  const float* kb = kinv + static_cast<size_t>(b) * P * P;
+  const float* K = kinv + static_cast<size_t>(b) * P * P;
   const size_t v = static_cast<size_t>(b) * P + j;
-
-  if (resident) {
-    const float4* src = reinterpret_cast<const float4*>(kb);
-    float4* dst = reinterpret_cast<float4*>(s_k);
-    for (int e = j; e < P * P / 4; e += P) dst[e] = src[e];
-  }
-  const float* K = resident ? s_k : kb;
 
   const float qj = q[v], lbj = lb[v], ubj = ub[v];
   const float rj = rho[v], rij = rhoi[v];
   float x = x0[v], z = z0[v], y = y0[v];
-  __syncthreads();
 
   for (int it = 0; it < length; ++it) {
     s_rhs[j] = sigma * x - qj + rj * z - y;
@@ -71,12 +168,7 @@ __global__ void admm_segment_kernel(
 #pragma unroll 8
     for (int i = 0; i < P; ++i) acc = fmaf(s_rhs[i], K[i * P + j], acc);
     __syncthreads();  // s_rhs is rewritten by the next iteration
-    const float x_n = alpha * acc + one_minus_alpha * x;
-    const float z_un = alpha * acc + one_minus_alpha * z + y * rij;
-    const float z_n = clip_nan(z_un, lbj, ubj);
-    y = rj * (z_un - z_n);
-    x = x_n;
-    z = z_n;
+    admm_update(acc, lbj, ubj, rj, rij, alpha, one_minus_alpha, x, z, y);
   }
   xo[v] = x;
   zo[v] = z;
@@ -91,17 +183,25 @@ extern "C" int admm_segment_launch(
     const float* y0, float* xo, float* zo, float* yo, int B, int P,
     float sigma, float alpha, float one_minus_alpha, int length,
     cudaStream_t stream) {
-  const size_t resident_bytes = sizeof(float) * (static_cast<size_t>(P) * P + P);
-  const bool resident = resident_bytes <= static_cast<size_t>(kMaxSmem);
-  const size_t smem = resident ? resident_bytes : sizeof(float) * P;
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0) {
-    admm_segment_kernel<<<B, P, smem, stream>>>(
-        kinv, q, lb, ub, rho, rhoi, x0, z0, y0, xo, zo, yo, P, sigma, alpha,
-        one_minus_alpha, length, resident);
+  if (P < 32 || P % 32 != 0 || P > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B);
+  cfg.stream = stream;
+  cudaError_t err;
+  if (P == kRegP) {
+    cfg.blockDim = dim3(kRegThreads);
+    err = cudaLaunchKernelEx(&cfg, admm_segment_reg_kernel, kinv, q, lb, ub,
+                             rho, rhoi, x0, z0, y0, xo, zo, yo, sigma, alpha,
+                             one_minus_alpha, length);
+  } else {
+    cfg.blockDim = dim3(P);
+    cfg.dynamicSmemBytes = sizeof(float) * P;
+    err = cudaLaunchKernelEx(&cfg, admm_segment_streamed_kernel, kinv, q, lb,
+                             ub, rho, rhoi, x0, z0, y0, xo, zo, yo, P, sigma,
+                             alpha, one_minus_alpha, length);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

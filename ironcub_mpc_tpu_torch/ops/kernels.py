@@ -4,19 +4,21 @@ Hopper, their plain PyTorch twins and their launch counters.
 Counterpart of ``ironcub_mpc_tpu/ops/pallas_solve.py``:
 
 - :func:`admm_segment` replaces ``pallas_solve.admm_segment`` — ``length``
-  over-relaxed ADMM iterations with K⁻¹ resident on chip
-  (``csrc/admm_segment.cu``).
+  over-relaxed ADMM iterations with K⁻¹ resident on chip, in registers at
+  P = 128 (``csrc/admm_segment.cu``; :func:`segment_plan` picks the variant).
 - :func:`admm_segment_grouped` replaces ``pallas_solve.admm_segment_grouped``
   — the same segment with ``group`` scenarios advanced by one program
   (``csrc/admm_segment_grouped.cu``); the batched head-to-head of
   ``tools/bench_segment_kernels_torch.py`` runs it, the tick does not.
 - :func:`woodbury_ns` replaces ``pallas_solve.woodbury_ns`` — the rank-n_box
   Woodbury ρ-refresh of K⁻¹ with its Gauss–Jordan capacitance inverse,
-  Newton–Schulz steps and symmetrised output (``csrc/woodbury_ns.cu``).
+  Newton–Schulz steps and symmetrised output, a scenario on one thread block
+  or on a cluster of 8 (``csrc/woodbury_ns.cu``; :func:`woodbury_plan` picks
+  the cluster size).
 
 All take the full, lane-padded layout of the Pallas kernels with a leading
 batch dimension B: matrices [B, P, P], vectors [B, P] (P = 128 for the
-stock nU = 120). Box entries sit at ``box0:``; outside the box ρ = 0, 1/ρ =
+stock nU = 120; both tick kernels also take P = 256). Box entries sit at ``box0:``; outside the box ρ = 0, 1/ρ =
 0 and the bounds are ±inf_bound, so no masks are needed.
 
 A wrapper runs its plain twin only because its tensors lie on the CPU. For
@@ -50,6 +52,8 @@ SOURCES = {"admm_segment": "admm_segment.cu",
 MAX_SMEM = 232448
 MAX_THREADS = 1024
 MAX_NAMED_BARRIERS = 15
+MAX_CLUSTER = 8
+NUM_SMS = 132
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -119,7 +123,9 @@ def _lib(name: str):
         elif name == "admm_segment_grouped":
             fn.argtypes = [p] * 12 + [i, i, i, f, f, f, i, p]
         else:
-            fn.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
+            fn.argtypes = [p] * 5 + [i, i, i, i, f, i, i, p]
+            lib.woodbury_ns_smem_bytes.restype = i
+            lib.woodbury_ns_smem_bytes.argtypes = [i, i, i, i]
         _libs[name] = lib
     return lib
 
@@ -182,6 +188,25 @@ def admm_segment_plain(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
     return x, z, y
 
 
+SEGMENT_REG_THREADS = 512
+
+
+def segment_plan(B: int, P: int) -> dict:
+    """The launch :func:`admm_segment` makes at padded size ``P``: the
+    variant, the blocks, the threads of a block and its shared memory.
+
+    One rule, by size alone, which the source's launcher applies: K⁻¹ in
+    registers at P = 128 (the stock layout), else re-read through L2 every
+    iteration."""
+    if P % 32 or not 0 < P <= MAX_THREADS:
+        raise ValueError(f"admm_segment: padded size {P} must be a multiple "
+                         f"of 32 in (0, {MAX_THREADS}]")
+    if P == LANE:
+        return dict(variant="registers", blocks=B,
+                    threads=SEGMENT_REG_THREADS, smem_bytes=4 * 2 * LANE)
+    return dict(variant="streamed", blocks=B, threads=P, smem_bytes=4 * P)
+
+
 def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
                  *, sigma: float, alpha: float, length: int):
     """Run ``length`` ADMM iterations per lane with K⁻¹ resident on chip.
@@ -193,9 +218,7 @@ def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
                                   x_f, z_f, y_f, sigma=sigma, alpha=alpha,
                                   length=length)
     B, P = Kinv_p.shape[0], Kinv_p.shape[-1]
-    if P % 32 or not 0 < P <= 1024:
-        raise ValueError(f"admm_segment: padded size {P} must be a multiple "
-                         "of 32 in (0, 1024]")
+    segment_plan(B, P)
     vecs = dict(q_f=q_f, lb_f=lb_f, ub_f=ub_f, rho_f=rho_f, rhoi_f=rhoi_f,
                 x_f=x_f, z_f=z_f, y_f=y_f)
     _check_segment(Kinv_p, vecs)
@@ -335,20 +358,83 @@ def woodbury_ns_plain(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
     return 0.5 * (X + X.mT)
 
 
-def woodbury_smem_bytes(n_box: int) -> int:
-    """Dynamic shared memory of the woodbury_ns kernel: the [n_box, 2·n_box]
-    Gauss–Jordan buffer, its pivot row and column, and two matmul tiles
-    (kept in step with csrc/woodbury_ns.cu)."""
-    return 4 * (2 * n_box * n_box + 3 * n_box + 32 * 65 + 32 * 64)
+WOODBURY_THREADS = 256
+# padded size -> the cluster sizes (blocks a scenario is spread over) the
+# kernel is built for; at P = 256 only a cluster's shared memory holds X and T
+WOODBURY_CLUSTERS = {128: (1, 8), 256: (8,)}
+# the widest box the Gauss–Jordan elimination takes
+WOODBURY_MAX_BOX = LANE
+# floats beside the matrices: pivot rows and columns [2][2][128] and d [128]
+WOODBURY_VEC_FLOATS = 5 * LANE
+
+
+def woodbury_smem_bytes(n_box: int, n_ns: int = 1, cluster: int = 1,
+                        P: int = LANE) -> int:
+    """Dynamic shared memory of one block of the woodbury_ns kernel when a
+    scenario is spread over ``cluster`` blocks (``make_layout`` of
+    csrc/woodbury_ns.cu, kept in step by tests/test_torch_kernels.py): the
+    strip of X [R, P], G [n8, P] (later the strip of T [R, P]), U [R, n4],
+    the strip of K [R, P] (in U's place when both do not fit), the pivot
+    and d vectors and, for a cluster, the gathered operand ([P, P] at
+    P = 128, [R, P] beyond); R = P / cluster, n8 and n4 are n_box rounded up
+    to 8 and 4; T and K only for n_ns > 0."""
+    R = P // cluster
+    n8, n4 = -(-n_box // 8) * 8, -(-n_box // 4) * 4
+    gt = (max(R, n8) if n_ns > 0 else n8) * P
+    u = R * n4
+    h = R * P if n_ns > 0 else 0
+    gathered = 0 if cluster == 1 else (P if P == LANE else R) * P
+    rest = R * P + gt + WOODBURY_VEC_FLOATS + gathered
+    if 4 * (rest + u + h) <= MAX_SMEM:
+        return 4 * (rest + u + h)
+    return 4 * (rest + max(u, h))
+
+
+def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
+                  cluster: int | None = None) -> dict:
+    """The launch :func:`woodbury_ns` makes: the cluster size (blocks a
+    scenario is spread over), the blocks, the threads of a block and its
+    shared memory.
+
+    One rule. At P = 128 a scenario fits one block; it is spread over 8 only
+    where there is a product worth splitting (a Newton–Schulz step, or a box
+    wider than the 32 a single pass inverts) and every block of the batch
+    still has an SM of its own (B · 8 ≤ 132), so a lone scenario draws on 8
+    SMs; a batch that fills the card loses time to gathering the peers'
+    strips (PERF.md has both timed on an H100). At P = 256 the matrices fit
+    only a cluster of 8. ``cluster`` forces a size the kernel is built for
+    (the card tests time both)."""
+    if P not in WOODBURY_CLUSTERS:
+        raise ValueError(f"woodbury_ns: the kernel is built for padded sizes "
+                         f"{tuple(WOODBURY_CLUSTERS)}, got {P}")
+    if n_box > WOODBURY_MAX_BOX:
+        raise ValueError(f"woodbury_ns: n_box={n_box} is wider than the "
+                         f"{WOODBURY_MAX_BOX} the elimination takes")
+    sizes = WOODBURY_CLUSTERS[P]
+    if cluster is None:
+        split = n_ns > 0 or n_box > 32
+        lone = split and B * MAX_CLUSTER <= NUM_SMS
+        cluster = MAX_CLUSTER if lone or 1 not in sizes else 1
+    if cluster not in sizes:
+        raise ValueError(f"woodbury_ns: cluster size {cluster} is not one of "
+                         f"{sizes} at padded size {P}")
+    smem = woodbury_smem_bytes(n_box, n_ns, cluster, P)
+    if smem > MAX_SMEM:
+        raise ValueError(f"woodbury_ns: n_box={n_box} needs more shared "
+                         "memory than one block has")
+    return dict(cluster=cluster, blocks=B * cluster,
+                threads=WOODBURY_THREADS, smem_bytes=smem)
 
 
 def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
-                sigma: float, n_ns: int):
+                sigma: float, n_ns: int, cluster: int | None = None):
     """(K(ρ_new))⁻¹ from (K(ρ_old))⁻¹ per lane.
 
     ``Kinv_p`` and ``H_p`` are [B, P, P]; ``d_f`` = ρ_new − ρ_old and
     ``rho_f`` = ρ_new are [B, P] in the full layout (zero outside the box
-    entries [box0, box0 + n_box)). Returns the symmetrised [B, P, P]."""
+    entries [box0, box0 + n_box)). Returns the symmetrised [B, P, P].
+    ``cluster`` overrides the cluster size :func:`woodbury_plan` would
+    choose (card only)."""
     P = Kinv_p.shape[-1]
     if box0 < 0 or n_box < 1 or box0 + n_box > P:
         raise ValueError(
@@ -358,23 +444,16 @@ def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
         return woodbury_ns_plain(Kinv_p, H_p, d_f, rho_f, box0=box0,
                                  n_box=n_box, sigma=sigma, n_ns=n_ns)
     B = Kinv_p.shape[0]
-    if P % 64:
-        raise ValueError(f"woodbury_ns: padded size {P} must be a multiple "
-                         "of 64")
-    if woodbury_smem_bytes(n_box) > MAX_SMEM:
-        raise ValueError(f"woodbury_ns: n_box={n_box} needs more shared "
-                         "memory than one block has")
+    plan = woodbury_plan(B, P, n_box, int(n_ns), cluster)
     _check(dict(Kinv_p=Kinv_p, H_p=H_p, d_f=d_f, rho_f=rho_f), Kinv_p.device,
            dict(Kinv_p=(B, P, P), H_p=(B, P, P), d_f=(B, P), rho_f=(B, P)))
     out = torch.empty_like(Kinv_p)
-    scratch = torch.empty((B, 3, P, P), dtype=Kinv_p.dtype,
-                          device=Kinv_p.device)
     fn = _lib("woodbury_ns").woodbury_ns_launch
     with torch.cuda.device(Kinv_p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in (Kinv_p, H_p, d_f, rho_f, out,
-                                         scratch)),
-                B, P, int(box0), int(n_box), float(sigma), int(n_ns), stream)
+        rc = fn(*(t.data_ptr() for t in (Kinv_p, H_p, d_f, rho_f, out)),
+                B, P, int(box0), int(n_box), float(sigma), int(n_ns),
+                plan["cluster"], stream)
     _raise_on(rc, "woodbury_ns")
     woodbury_ns.launches += 1
     return out

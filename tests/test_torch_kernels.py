@@ -8,6 +8,8 @@ that file. The CUDA kernels themselves are held against the twins on a
 card by tests/test_torch_kernels_gpu.py and chip_smoke.py.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -149,3 +151,145 @@ def test_wrappers_raise_on_a_device_without_kernel():
     with pytest.raises(ValueError, match="invalid"):
         kernels.woodbury_ns(m, m, v, v, box0=120, n_box=24, sigma=SIGMA,
                             n_ns=1)
+
+
+# ---------------------------------------------------------------------------
+# the launch plans (pure Python: which variant, how many threads, how much
+# shared memory, what cluster) and their agreement with the CUDA sources
+# ---------------------------------------------------------------------------
+
+
+def _cuda_constants(source):
+    """The namespace-scope ``constexpr int kName = <int or product of ints
+    and names>;`` of a CUDA source as ``{name: value}``."""
+    text = (kernels.CSRC / source).read_text()
+    out = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", text,
+                                 re.M):
+        out[name] = int(eval(expr, {"__builtins__": {}}, dict(out)))
+    return text, out
+
+
+@pytest.mark.parametrize("batch", [1, 64, 256])
+@pytest.mark.parametrize("p,variant", [(128, "registers"),
+                                       (256, "streamed")])
+def test_segment_plan_fits_the_card(p, variant, batch):
+    plan = kernels.segment_plan(batch, p)
+    assert plan["variant"] == variant
+    assert plan["blocks"] == batch
+    assert 0 < plan["threads"] <= kernels.MAX_THREADS
+    assert plan["threads"] % 32 == 0
+    assert 0 < plan["smem_bytes"] <= kernels.MAX_SMEM
+
+
+def test_segment_plan_refuses_what_the_kernel_does_not_take():
+    assert kernels.segment_plan(4, 192)["variant"] == "streamed"
+    assert kernels.segment_plan(4, 1024)["variant"] == "streamed"
+    for p in (0, 100, 130, 2048):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            kernels.segment_plan(1, p)
+
+
+def test_segment_plan_matches_the_cuda_source():
+    text, c = _cuda_constants("admm_segment.cu")
+    assert c["kRegP"] == kernels.LANE
+    assert c["kRegThreads"] == kernels.SEGMENT_REG_THREADS
+    plan = kernels.segment_plan(1, kernels.LANE)
+    assert plan["threads"] == c["kRegThreads"]
+    # static shared memory of the register variant: rhs, double-buffered
+    assert "__shared__ float4 s_rhs[2][kRegP / 4];" in text
+    assert plan["smem_bytes"] == 2 * c["kRegP"] * 4
+    # the launcher picks the variant by the same rule as the plan, and the
+    # streamed variant runs one thread per coordinate on [P] floats of rhs
+    assert "if (P == kRegP) {" in text
+    assert "cfg.blockDim = dim3(P);" in text
+    assert "cfg.dynamicSmemBytes = sizeof(float) * P;" in text
+
+
+@pytest.mark.parametrize("n_ns", [0, 1])
+@pytest.mark.parametrize("batch", [1, 64, 256])
+@pytest.mark.parametrize("p,n_box", [(128, 24), (128, 120), (256, 48),
+                                     (256, 120)])
+def test_woodbury_plan_fits_the_card(p, n_box, batch, n_ns):
+    plan = kernels.woodbury_plan(batch, p, n_box, n_ns)
+    c = plan["cluster"]
+    assert c in kernels.WOODBURY_CLUSTERS[p] and c <= kernels.MAX_CLUSTER
+    assert plan["blocks"] == batch * c
+    assert plan["threads"] == kernels.WOODBURY_THREADS <= kernels.MAX_THREADS
+    assert 0 < plan["smem_bytes"] <= kernels.MAX_SMEM
+    # the rule: at the stock size a lone scenario with a product to split
+    # takes 8 SMs, any other batch one block a scenario; twice the stock
+    # size fits a cluster of 8 only
+    if p == 256:
+        assert c == 8
+    elif batch == 1 and (n_ns > 0 or n_box > 32):
+        assert c == 8 and plan["blocks"] <= kernels.NUM_SMS
+    else:
+        assert c == 1
+    # every cluster size the wrapper can be told to launch fits as well
+    for forced in kernels.WOODBURY_CLUSTERS[p]:
+        got = kernels.woodbury_plan(batch, p, n_box, n_ns, forced)
+        assert got["cluster"] == forced
+        assert got["smem_bytes"] <= kernels.MAX_SMEM
+
+
+def test_woodbury_plan_refuses_what_the_kernel_does_not_take():
+    for p in (64, 192, 384):
+        with pytest.raises(ValueError, match="padded sizes"):
+            kernels.woodbury_plan(1, p, 24, 1)
+    for p, c in ((128, 0), (128, 2), (128, 4), (128, 16), (256, 1)):
+        with pytest.raises(ValueError, match="cluster size"):
+            kernels.woodbury_plan(1, p, 24, 1, c)
+    with pytest.raises(ValueError, match="wider"):
+        kernels.woodbury_plan(1, 256, 129, 1)
+    # a lone scenario keeps its cluster up to the batch whose blocks still
+    # have an SM each
+    assert kernels.woodbury_plan(16, 128, 24, 1)["cluster"] == 8
+    assert kernels.woodbury_plan(17, 128, 24, 1)["cluster"] == 1
+    # no box the elimination takes outgrows a block's shared memory
+    worst = max(kernels.woodbury_smem_bytes(n, ns, c, p)
+                for p, cs in kernels.WOODBURY_CLUSTERS.items() for c in cs
+                for n in range(1, kernels.WOODBURY_MAX_BOX + 1)
+                for ns in (0, 1))
+    assert worst <= kernels.MAX_SMEM
+
+
+def _layout_bytes(c, P, n, n_ns, cluster):
+    """The regions of csrc/woodbury_ns.cu's header comment, from the
+    constants parsed out of the source."""
+    R = P // cluster
+    n8, n4 = (n + 7) // 8 * 8, (n + 3) // 4 * 4
+    x = R * P
+    g_then_t = (max(R, n8) if n_ns else n8) * P
+    u = R * n4
+    k_strip = R * P if n_ns else 0
+    gathered = 0 if cluster == 1 else P * P if P == c["kLane"] else R * P
+    fixed = x + g_then_t + c["kVecFloats"] + gathered
+    apart = 4 * (fixed + u + k_strip)
+    return apart if apart <= c["kMaxSmem"] else 4 * (fixed + max(u, k_strip))
+
+
+def test_woodbury_smem_bytes_matches_the_cuda_source():
+    text, c = _cuda_constants("woodbury_ns.cu")
+    assert c["kLane"] == kernels.LANE == kernels.WOODBURY_MAX_BOX
+    assert c["kThreads"] == kernels.WOODBURY_THREADS
+    assert c["kMaxSmem"] == kernels.MAX_SMEM
+    assert c["kVecFloats"] == kernels.WOODBURY_VEC_FLOATS
+    assert "n_box > kLane" in text
+    built = {}
+    for p, cluster in re.findall(r"err = launch<(\d+), (\d+)>\(", text):
+        built.setdefault(int(p), []).append(int(cluster))
+    assert {p: tuple(cs) for p, cs in built.items()} == \
+        kernels.WOODBURY_CLUSTERS
+    for P, clusters in kernels.WOODBURY_CLUSTERS.items():
+        for n in (1, 7, 24, 32, 33, 48, 100, 120, 128):
+            for n_ns in (0, 1, 2):
+                for cluster in clusters:
+                    assert kernels.woodbury_smem_bytes(n, n_ns, cluster, P) \
+                        == _layout_bytes(c, P, n, n_ns, cluster), \
+                        (P, n, n_ns, cluster)
+    # the stock refresh keeps the K strip beside U, the wide box cannot
+    assert kernels.woodbury_smem_bytes(24, 1, 1) == 4 * (
+        3 * 128 * 128 + 128 * 24 + c["kVecFloats"])
+    assert kernels.woodbury_smem_bytes(120, 1, 1) == 4 * (
+        3 * 128 * 128 + c["kVecFloats"])

@@ -10,7 +10,7 @@ three candidates:
    [B, 128, 128] from device memory every iteration); the reference the
    other two are held against.
 2. `cuda-single` — the single-scenario kernel, one thread block per
-   scenario with K⁻¹ resident in shared memory (ops/kernels.admm_segment).
+   scenario with K⁻¹ resident in its registers (ops/kernels.admm_segment).
 3. `cuda-group8` — the grouped kernel, 8 scenarios per thread block
    (ops/kernels.admm_segment_grouped).
 
