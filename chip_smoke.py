@@ -16,13 +16,17 @@ Phases (any failure exits non-zero):
              can choose (admm_segment: K⁻¹ in registers at P = 128, streamed
              through L2 at P = 256; woodbury_ns: one block or a cluster of 8
              at P = 128, a cluster of 8 at P = 256) is held against the twin
-             and timed as well, at batch 1, 64 and 256. The
-             previous design's times stand beside the new ones, and the
+             and timed as well, at batch 1, 64 and 256, and woodbury_ns's
+             general route (one block a scenario, a device scratch) at the
+             shapes the tuned routes do not take: P = 256 with n_box 132 (a
+             control horizon of 13 with joint limits), P = 384 and P = 640.
+             The previous design's times stand beside the new ones, and the
              script fails where a kernel is more than 10 % slower than its
              previous design at a main-path shape, or where woodbury_ns at
-             n_box 120 loses to torch.linalg.inv_ex. The grouped segment is
-             also held against, and timed beside, the single-scenario
-             kernel and the stock-PyTorch loop.
+             n_box 120 loses to torch.linalg.inv_ex. The grouped segment
+             (group 1 to 16, one wave and four, P = 256) is also held
+             against, and timed beside, the single-scenario kernel and the
+             stock-PyTorch loop.
 3. segments  the segment head-to-head entry point
              (tools/bench_segment_kernels_torch.main, batch 512 × 40
              iterations): three variants within 2e-3 of each other.
@@ -32,7 +36,13 @@ Phases (any failure exits non-zero):
              (per-lane decisions), kernel_mode="auto"; every lane must
              solve, and the first 20 ticks must agree with the port's own
              CPU run (the plain twins) on the same inputs.
-5. flight    the closed loop at full width (23-joint calibrated Mk3 model,
+5. long_horizon  the recorded stream under MPCConfig(control_horizon=13,
+             use_joint_position_constraint=True): nU = 132 pads to P = 256
+             with the box over all 132 inputs, so the refresh takes
+             woodbury_ns's general route; 10 ticks at batch 1 and 10 at
+             batch 64, every lane solved, the first 5 against the port's
+             CPU run.
+6. flight    the closed loop at full width (23-joint calibrated Mk3 model,
              LSTM+EKF jets, mission trajectories, flight solver settings):
              batch 1 through ``run_flight`` (2 s settle, 400 ticks) with
              the per-layer split, a profiled window and a comparison of the
@@ -76,8 +86,20 @@ BENCH = dict(max_iter=40, polish=True, rho_update_iters=(15,),
              kinv_guard=True, ns_skip_tol=0.02, term_check_every=5,
              kernel_mode="auto")
 N_TICKS, N_CHECK, BATCH = 40, 20, 256
+# a long horizon with joint limits: nU = 8·13 + 4·7 = 132 -> P = 256, n_box 132
+LONG_HORIZON = dict(control_horizon=13, use_joint_position_constraint=True)
+LH_TICKS, LH_CHECK, LH_BATCH = 10, 5, 64
 # the head-to-head shape of the grouped segment, and the tick's chunk shape
 SEG_BATCH, SEG_ITERS, GROUP = 512, 40, 8
+# (batch, length, group, P) of the grouped rows: every group at the
+# head-to-head shape, the tick's chunk at batch 1, 64 and 256 (beside
+# admm_segment's 4 × 8 layout), four waves (B = 1056), P = 256
+GROUPED_SHAPES = [(SEG_BATCH, SEG_ITERS, g, P) for g in (1, 4, 8, 16)] + [
+    (1, 5, 1, P), (64, 5, 1, P), (BATCH, 5, GROUP, P),
+    (1056, SEG_ITERS, GROUP, P), (64, 5, GROUP, P2)]
+# (P, nU, box0, batches, n_ns) of woodbury_ns's general route
+WOODBURY_GENERAL = [(P2, 132, 0, (1, 64), (0, 1)), (384, 288, 208, (1,), (1,)),
+                    (640, 528, 520, (1, 16), (1,)), (640, 528, 0, (1,), (0,))]
 # closed-loop flight: 2 s at batch 1; the first 20 s of the mission at batch
 # 64 unless the whole script would pass FLIGHT_DEADLINE_S
 FLIGHT_B1_S, FLIGHT_SETTLE_S = 2.0, 2.0
@@ -86,15 +108,18 @@ FLIGHT_DEADLINE_S = 600.0
 
 # Device ms of the previous designs of admm_segment (K⁻¹ in shared memory, one
 # thread per coordinate) and woodbury_ns (intermediates in a device-memory
-# scratch, one block of 4 × 4 register tiles per scenario) from this script's
-# phase 2 on PREVIOUS_CARD, keyed by batch; the new designs are held to them
-# at the main path's shapes.
+# scratch, one block of 4 × 4 register tiles per scenario), run H of PERF.md,
+# and of admm_segment_grouped (one block of 8 scenarios, 55 rows of each K⁻¹
+# resident, the rest streamed from L2), run L, from this script's phase 2 on
+# PREVIOUS_CARD, keyed by batch; the new designs are held to them at the
+# main path's shapes and the grouped kernel's two timed shapes.
 PREVIOUS_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREVIOUS_MS = {
     ("admm_segment", 5): {1: 0.0129, 64: 0.0132, 256: 0.0142},
     ("woodbury_ns", 24, 1): {1: 0.1836, 64: 0.1857, 256: 0.3095},
     ("woodbury_ns", 24, 0): {1: 0.0625, 64: 0.0634, 256: 0.0969},
     ("woodbury_ns", 120, 1): {256: 2.547},
+    ("admm_segment_grouped", 8): {512: 0.2628, 256: 0.0389},
 }
 SLOWER_THAN_PREVIOUS = 1.10
 
@@ -237,9 +262,10 @@ def woodbury_bound(batch, n_box, n_ns, p=P):
     # K⁻¹ in, the result out, d and ρ; H only where Newton–Schulz reads it
     n_bytes = 4 * batch * ((3 if n_ns else 2) * p * p + 2 * p)
     n = n_box
-    # Gauss–Jordan 4n³, W = M⁻¹(d⊙K⁻¹[box,:]) 2n²P, the rank-n update
-    # 2P²n, two P³ products per Newton–Schulz step, the symmetrisation
-    n_ops = batch * (4 * n ** 3 + 2 * n * n * p + 2 * p * p * n
+    # Gauss–Jordan in place 2n³ (n steps, each a multiply and a subtract on
+    # n × n entries), W = M⁻¹(d⊙K⁻¹[box,:]) 2n²P, the rank-n update 2P²n,
+    # two P³ products per Newton–Schulz step, the symmetrisation
+    n_ops = batch * (2 * n ** 3 + 2 * n * n * p + 2 * p * p * n
                      + n_ns * 4 * p ** 3 + 2 * p * p)
     return bound_ms(n_bytes, n_ops)
 
@@ -250,6 +276,8 @@ def _previous(row):
         return None
     if row["name"] == "admm_segment":
         key = ("admm_segment", row["length"])
+    elif row["name"] == "admm_segment_grouped":
+        key = ("admm_segment_grouped", row["group"])
     else:
         key = ("woodbury_ns", row["n_box"], row["n_ns"])
     return PREVIOUS_MS.get(key, {}).get(row["batch"])
@@ -277,7 +305,8 @@ def segment_row(K, ins, batch, length, p=P):
         bound_ms=bms, bound_by=by, library_ms=None)
 
 
-def woodbury_row(K, ins, batch, box0, nb, n_ns, cluster=None, ref=None):
+def woodbury_row(K, ins, batch, box0, nb, n_ns, cluster=None, ref=None,
+                 tol=1e-4):
     """One woodbury_ns row: the kernel on a cluster of ``cluster`` blocks
     (or the plan's choice) against the twin ``ref``, its time and bound."""
     p = ins[0].shape[-1]
@@ -285,15 +314,15 @@ def woodbury_row(K, ins, batch, box0, nb, n_ns, cluster=None, ref=None):
     got = K.woodbury_ns(*ins, cluster=cluster, **kw)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    tol = 1e-4
-    chosen = K.woodbury_plan(batch, p, nb, n_ns, cluster)["cluster"]
+    plan = K.woodbury_plan(batch, p, nb, n_ns, cluster)
     check(bool(torch.isfinite(got).all()) and err <= tol,
           f"woodbury_ns B={batch} P={p} box0={box0} n_ns={n_ns} "
-          f"cluster={chosen}: err {err:.3e} > {tol}")
+          f"{plan['route']} cluster={plan['cluster']}: err {err:.3e} > {tol}")
     bms, by = woodbury_bound(batch, nb, n_ns, p)
     return dict(
         name="woodbury_ns", batch=batch, P=p, box0=box0, n_box=nb, n_ns=n_ns,
-        cluster=chosen, forced=cluster is not None, max_abs_err=err, tol=tol,
+        route=plan["route"], cluster=plan["cluster"],
+        forced=cluster is not None, max_abs_err=err, tol=tol,
         ms=cuda_ms(lambda: K.woodbury_ns(*ins, cluster=cluster, **kw)),
         plain_ms=None, bound_ms=bms, bound_by=by, library_ms=None)
 
@@ -311,17 +340,22 @@ def phase_kernels(K, dev, record):
         ins = list(segment_inputs(batch, 40 + batch, dev, NU2, BOX02,
                                   P2).values())
         rows.append(segment_row(K, ins, batch, 5, p=P2))
-    for batch in (1, FLIGHT_BATCH, BATCH):
-        for nu, box0, p in ((NU, BOX0, P), (NU, 0, P), (NU2, BOX02, P2)):
+    tuned = [(p, nu, box0, (1, FLIGHT_BATCH, BATCH), (0, 1))
+             for p, nu, box0 in ((P, NU, BOX0), (P, NU, 0), (P2, NU2, BOX02))]
+    for p, nu, box0, batches, ns_steps in tuned + WOODBURY_GENERAL:
+        for batch in batches:
             ins = list(woodbury_inputs(batch, box0, 20 + box0 + batch, dev,
                                        nu, p).values())
             nb = nu - box0
             K_new = (ins[1][:, :nu, :nu] + SIGMA * torch.eye(nu, device=dev)
                      + torch.diag_embed(ins[3][:, :nu])).contiguous()
-            for n_ns in (0, 1):
+            for n_ns in ns_steps:
                 kw = dict(box0=box0, n_box=nb, sigma=SIGMA, n_ns=n_ns)
                 ref = K.woodbury_ns_plain(*ins, **kw)
-                row = woodbury_row(K, ins, batch, box0, nb, n_ns, ref=ref)
+                general = K.woodbury_plan(batch, p, nb, n_ns)["route"] \
+                    == "general"
+                row = woodbury_row(K, ins, batch, box0, nb, n_ns, ref=ref,
+                                   tol=1e-5 if general else 1e-4)
                 row["plain_ms"] = cuda_ms(
                     lambda: K.woodbury_ns_plain(*ins, **kw), reps=10)
                 # the batched inverse of K(ρ_new) computes the same
@@ -331,7 +365,8 @@ def phase_kernels(K, dev, record):
                     lambda: torch.linalg.inv_ex(K_new), reps=10)
                 rows.append(row)
                 # the cluster size the plan did not choose
-                for c in K.WOODBURY_CLUSTERS[p]:
+                for c in K.WOODBURY_CLUSTERS.get(p, ()) if not general \
+                        else ():
                     if c != row["cluster"]:
                         rows.append(woodbury_row(K, ins, batch, box0, nb,
                                                  n_ns, cluster=c, ref=ref))
@@ -339,8 +374,8 @@ def phase_kernels(K, dev, record):
     slow = []
     for r in rows:
         shape = ", ".join(f"{k}={r[k]}" for k in
-                          ("batch", "length", "group", "P", "variant", "box0",
-                           "n_box", "n_ns", "cluster") if k in r)
+                          ("batch", "length", "group", "P", "variant", "route",
+                           "box0", "n_box", "n_ns", "cluster") if k in r)
         opt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
         line = (f"[kernels] {r['name']}({shape}): err {r['max_abs_err']:.2e} "
                 f"(tol {r['tol']:.0e})  kernel {r['ms']:.4f} ms  twin "
@@ -350,7 +385,8 @@ def phase_kernels(K, dev, record):
         if prev is not None:
             r["previous_ms"] = prev
             line += f"  previous design {prev:.4f} ms ({PREVIOUS_CARD})"
-            main_path = r["name"] == "admm_segment" or r["n_box"] == NU - BOX0
+            main_path = (r["name"] != "woodbury_ns"
+                         or r["n_box"] == NU - BOX0)
             if main_path and r["ms"] > SLOWER_THAN_PREVIOUS * prev:
                 slow.append(f"{r['name']}({shape}) {r['ms']:.4f} ms against "
                             f"{prev:.4f} ms")
@@ -383,32 +419,36 @@ def segment_tool():
 
 
 def grouped_rows(K, dev):
-    """admm_segment_grouped against its twin and against admm_segment at the
-    head-to-head shape and at the tick's chunk shape."""
+    """admm_segment_grouped against its twin and against admm_segment at
+    GROUPED_SHAPES."""
     bmm_segment = segment_tool().torch_bmm_segment
     rows = []
-    for batch, length in ((SEG_BATCH, SEG_ITERS), (BATCH, 5)):
-        ins = segment_inputs(batch, 30 + batch, dev)
+    for batch, length, group, p in GROUPED_SHAPES:
+        nu, box0 = (NU, BOX0) if p == P else (NU2, BOX02)
+        ins = segment_inputs(batch, 30 + batch, dev, nu, box0, p)
         kw = dict(sigma=SIGMA, alpha=ALPHA, length=length)
-        got = K.admm_segment_grouped(*ins.values(), group=GROUP, **kw)
-        ref = K.admm_segment_grouped_plain(*ins.values(), group=GROUP, **kw)
+        got = K.admm_segment_grouped(*ins.values(), group=group, **kw)
+        ref = K.admm_segment_grouped_plain(*ins.values(), group=group, **kw)
         one = K.admm_segment(*ins.values(), **kw)
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
         err1 = max(float((a - b).abs().max()) for a, b in zip(got, one))
         tol = 1e-4
         ok = all(bool(torch.isfinite(a).all()) for a in got)
+        variant = K.grouped_plan(batch, p, group)["variant"]
         check(ok and err <= tol and err1 <= tol,
-              f"admm_segment_grouped B={batch} L={length}: err {err:.3e} "
-              f"(twin), {err1:.3e} (admm_segment) > {tol}")
-        bms, by = segment_bound(batch, length)
+              f"admm_segment_grouped B={batch} L={length} G={group} P={p} "
+              f"{variant}: err {err:.3e} (twin), {err1:.3e} (admm_segment) "
+              f"> {tol}")
+        bms, by = segment_bound(batch, length, p)
         rows.append(dict(
             name="admm_segment_grouped", batch=batch, length=length,
-            group=GROUP, max_abs_err=err, err_vs_single=err1, tol=tol,
+            group=group, P=p, variant=variant, forced=False, max_abs_err=err,
+            err_vs_single=err1, tol=tol,
             ms=cuda_ms(lambda: K.admm_segment_grouped(
-                *ins.values(), group=GROUP, **kw)),
+                *ins.values(), group=group, **kw)),
             plain_ms=cuda_ms(lambda: K.admm_segment_grouped_plain(
-                *ins.values(), group=GROUP, **kw), reps=10),
+                *ins.values(), group=group, **kw), reps=10),
             single_ms=cuda_ms(lambda: K.admm_segment(*ins.values(), **kw)),
             bmm_ms=cuda_ms(lambda: bmm_segment(*ins.values(), **kw),
                            reps=10),
@@ -581,6 +621,83 @@ def phase_main(K, dev, record):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: a long horizon with joint limits on the recorded stream
+# ---------------------------------------------------------------------------
+
+
+def long_horizon_replay(device):
+    """The recorded stream configured at LONG_HORIZON (the stream carries
+    snapshots, not a horizon: the reference windows are cut to the new
+    one)."""
+    from ironcub_mpc_tpu_torch.horizon.schedule import build_schedule
+    from ironcub_mpc_tpu_torch.runtime.replay import load_flight_replay
+
+    replay = load_flight_replay(device=device)
+    cfg = dataclasses.replace(replay.cfg, **LONG_HORIZON)
+    return replay._replace(cfg=cfg, sched=build_schedule(cfg))
+
+
+def phase_long_horizon(K, dev, record):
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.qp import condensed
+    from ironcub_mpc_tpu_torch.qp import mpc
+
+    replay = long_horizon_replay(dev)
+    replay_cpu = long_horizon_replay("cpu")
+    nu, nb = condensed.n_inputs(replay.cfg), condensed.n_box(replay.cfg)
+    p = K._pad_to(nu)
+    check(K.woodbury_plan(1, p, nb, 1)["route"] == "general",
+          f"long_horizon: nU {nu}, n_box {nb} does not take the general "
+          "route")
+    jitter = (0.1 * np.random.default_rng(1).standard_normal((LH_BATCH, 6))
+              ).astype(np.float32)
+    # batch 1 at the tolerances of tests/test_torch_tick.py's joint-limits
+    # tick, as phase 4's batch 1; batch 64 with batch-wide decisions at those
+    # of phase 4's batched run, for the reason given there
+    tight = dict(joints_pos_ref=1e-4, throttle=1e-3, thrust_des=1e-3,
+                 final_state=2e-5)
+    loose = dict(tight, throttle=0.1, final_state=1e-2)
+    runs = {"batch1": (1, admm.ADMMSettings(**BENCH), None, tight),
+            f"batch{LH_BATCH}": (LH_BATCH,
+                                 admm.ADMMSettings(**BENCH, batch_guard=True),
+                                 jitter, loose)}
+    out = {}
+    for name, (batch, settings, jit, tol) in runs.items():
+        problem, carry = replay.configure(settings)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        _, gpu, _ = run_ticks(mpc, replay, problem, carry, settings, batch,
+                              LH_TICKS, jit)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        launches = read_launches(K)
+        for k, n in launches.items():
+            check(n > 0, f"long_horizon {name}: {k} was never launched")
+        status = np.stack([o["status"] for o in gpu])
+        solved = float(np.isin(status, (admm.SOLVED,
+                                        admm.SOLVED_INACCURATE)).mean())
+        for o in gpu:
+            for k in ("joints_pos_ref", "throttle", "final_state"):
+                check(np.isfinite(o[k]).all(),
+                      f"long_horizon {name}: non-finite {k}")
+        check(solved == 1.0, f"long_horizon {name}: solved fraction {solved}")
+        problem_c, carry_c = replay_cpu.configure(settings)
+        _, cpu, _ = run_ticks(mpc, replay_cpu, problem_c, carry_c, settings,
+                              batch, LH_CHECK, jit)
+        worst = compare_streams(gpu[:LH_CHECK], cpu, tol,
+                                f"long_horizon {name}")
+        out[name] = dict(batch=batch, ticks=LH_TICKS, nU=nu, P=p, n_box=nb,
+                         ms_per_tick_first_included=wall_ms / LH_TICKS,
+                         launches=launches, solved_frac=solved,
+                         max_err_vs_cpu=worst)
+        print(f"[long_horizon] {name}: nU {nu} (P {p}, n_box {nb}), "
+              f"{LH_TICKS} ticks, solved fraction {solved}, launches "
+              f"{launches}, {wall_ms / LH_TICKS:.3f} ms/tick (first tick "
+              f"included), max err vs CPU over {LH_CHECK} ticks {worst}")
+    record["long_horizon"] = out
+    return out
+
+
 def profile_window(run, n=10):
     """torch.profiler over ``run(n)``, which drives ``n`` ticks: the device's
     busy time and kernel count (every event that ran on the card), the two
@@ -605,7 +722,8 @@ def profile_window(run, n=10):
     for ev in on_card:
         for name, marks in (("admm_segment", ("admm_segment_reg_kernel",
                                               "admm_segment_streamed_kernel")),
-                            ("woodbury_ns", ("woodbury_ns_kernel",))):
+                            ("woodbury_ns", ("woodbury_ns_kernel",
+                                             "woodbury_ns_general_kernel"))):
             if any(m in ev.key for m in marks):
                 k = ours.setdefault(name, dict(calls=0, total_ms=0.0))
                 k["calls"] += ev.count
@@ -633,7 +751,7 @@ def profile_window(run, n=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the closed-loop flight (path B)
+# phase 6: the closed-loop flight (path B)
 # ---------------------------------------------------------------------------
 
 
@@ -889,6 +1007,7 @@ def main():
     rows = phase_kernels(K, dev, record)
     seg = phase_segments(K, record)
     main_runs = phase_main(K, dev, record)
+    long_runs = phase_long_horizon(K, dev, record)
     flights = phase_flight(K, dev, record)
     record["total_s"] = time.perf_counter() - T_START
 
@@ -898,14 +1017,16 @@ def main():
     # n_ns=0, is in the record); the grouped segment at the head-to-head
     # shape. Launches: the sum over the paths that run the kernel.
     pick = {"admm_segment": dict(batch=BATCH, length=5, P=P, forced=False),
-            "admm_segment_grouped": dict(batch=SEG_BATCH, length=SEG_ITERS),
+            "admm_segment_grouped": dict(batch=SEG_BATCH, length=SEG_ITERS,
+                                         group=GROUP),
             "woodbury_ns": dict(batch=BATCH, P=P, box0=BOX0, n_ns=1,
                                 forced=False)}
     replaces = {
         "admm_segment": "ironcub_mpc_tpu/ops/pallas_solve.py:108",
         "admm_segment_grouped": "ironcub_mpc_tpu/ops/pallas_solve.py:163",
         "woodbury_ns": "ironcub_mpc_tpu/ops/pallas_solve.py:276"}
-    paths = [seg] + list(main_runs.values()) + list(flights.values())
+    paths = [seg] + list(main_runs.values()) + list(long_runs.values()) \
+        + list(flights.values())
     line = []
     for name, sel in pick.items():
         r = next(r for r in rows if r["name"] == name

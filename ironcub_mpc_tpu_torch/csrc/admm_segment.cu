@@ -27,33 +27,16 @@
 //   ~1 KB of shared memory and at most 64 registers: two blocks an SM, so
 //   256 scenarios are one wave.
 // - "streamed" (any other P up to 1024): one thread per coordinate, K⁻¹
-//   re-read through L2 every iteration.
+//   re-read through L2 every iteration (admm_segment.cuh, shared with
+//   admm_segment_grouped.cu, as is the iteration's vector half).
 // Plain fp32 FMA on CUDA cores throughout, no TF32.
 
-#include <cuda_runtime.h>
+#include "admm_segment.cuh"
 
 namespace {
 
 constexpr int kRegP = 128;        // padded size of the register variant
 constexpr int kRegThreads = 512;  // 16 warps x (8 columns, 32 row parts)
-
-// clip(v, lo, hi) = min(max(v, lo), hi) with NaN propagated, as jnp.clip
-__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
-}
-
-// the vector half of one iteration for one coordinate, from x̃_j
-__device__ __forceinline__ void admm_update(float xt, float lb, float ub,
-                                            float rho, float rhoi, float alpha,
-                                            float one_minus_alpha, float& x,
-                                            float& z, float& y) {
-  const float x_n = alpha * xt + one_minus_alpha * x;
-  const float z_un = alpha * xt + one_minus_alpha * z + y * rhoi;
-  const float z_n = clip_nan(z_un, lb, ub);
-  y = rho * (z_un - z_n);
-  x = x_n;
-  z = z_n;
-}
 
 __global__ void __launch_bounds__(kRegThreads, 2) admm_segment_reg_kernel(
     const float* __restrict__ kinv, const float* __restrict__ q,
@@ -138,41 +121,6 @@ __global__ void __launch_bounds__(kRegThreads, 2) admm_segment_reg_kernel(
     zo[v] = z;
     yo[v] = y;
   }
-}
-
-// one thread per coordinate; K⁻¹ is read from device memory through L2 every
-// iteration
-__global__ void admm_segment_streamed_kernel(
-    const float* __restrict__ kinv, const float* __restrict__ q,
-    const float* __restrict__ lb, const float* __restrict__ ub,
-    const float* __restrict__ rho, const float* __restrict__ rhoi,
-    const float* __restrict__ x0, const float* __restrict__ z0,
-    const float* __restrict__ y0, float* __restrict__ xo,
-    float* __restrict__ zo, float* __restrict__ yo, int P, float sigma,
-    float alpha, float one_minus_alpha, int length) {
-  extern __shared__ float smem[];
-  float* s_rhs = smem;  // [P]
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const float* K = kinv + static_cast<size_t>(b) * P * P;
-  const size_t v = static_cast<size_t>(b) * P + j;
-
-  const float qj = q[v], lbj = lb[v], ubj = ub[v];
-  const float rj = rho[v], rij = rhoi[v];
-  float x = x0[v], z = z0[v], y = y0[v];
-
-  for (int it = 0; it < length; ++it) {
-    s_rhs[j] = sigma * x - qj + rj * z - y;
-    __syncthreads();
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int i = 0; i < P; ++i) acc = fmaf(s_rhs[i], K[i * P + j], acc);
-    __syncthreads();  // s_rhs is rewritten by the next iteration
-    admm_update(acc, lbj, ubj, rj, rij, alpha, one_minus_alpha, x, z, y);
-  }
-  xo[v] = x;
-  zo[v] = z;
-  yo[v] = y;
 }
 
 }  // namespace

@@ -1,141 +1,159 @@
-// admm_segment_grouped — the ADMM segment of admm_segment.cu for `group`
-// scenarios per thread block, each scenario with its own K⁻¹.
+// admm_segment_grouped — the ADMM segment of admm_segment.cu over a whole
+// batch, every scenario's K⁻¹ on chip for all `length` iterations.
 //
 // Replaces the TPU kernel ironcub_mpc_tpu/ops/pallas_solve.py
-// `admm_segment_grouped` (body `_segment_group_kernel`): the batch is cut
-// into B/G groups and one program advances the G scenarios of its group
-// together through all `length` iterations. Per iteration and scenario, in
-// the full padded layout (ρ = 1/ρ = 0 and bounds ±inf_bound outside the box):
+// `admm_segment_grouped` (body `_segment_group_kernel`). Per iteration and
+// scenario, in the full padded layout (ρ = 1/ρ = 0 and bounds ±inf_bound
+// outside the box):
 //   rhs = σx − q + ρz − y;  x̃ = rhs·K⁻¹   (row-vector form, as on the TPU)
 //   x ← αx̃ + (1−α)x;  z_un = αx̃ + (1−α)z + y·ρ⁻¹
 //   z ← clip(z_un, lb, ub);  y ← ρ(z_un − z)
 //
-// What bounds it on an H100: at the head-to-head shape (B = 512, 40
-// iterations, P = 128) the 0.67 GFLOP of mat-vecs (10 µs at the fp32 peak)
-// and reading the 33.6 MB of K⁻¹ once (10 µs) weigh the same; with the
-// vectors counted the bytes are just ahead — but only if K⁻¹ is not read
-// again from device memory every iteration.
+// On the TPU `group` sets how many scenarios one program tiles through its
+// fast memory. Here the placement follows the card, not `group`: the wrapper
+// keeps only its contract (B divisible by group, the same result for every
+// group), and the launcher chooses the variant by P (ops/kernels.grouped_plan
+// mirrors it).
 //
-// The TPU program keeps all G matrices in its fast memory (8 × 64 KB). One
-// Hopper block has 227 KB of shared memory, so eight do not fit. This
-// kernel gives each scenario of the group an equal share of the block's
-// shared memory: the first `rows_res` rows of its K⁻¹ stay resident for the
-// whole segment (all 128 for G ≤ 3, 112 for G = 4, 55 for G = 8) and the
-// remaining rows are streamed every iteration through the read-only path;
-// after the first iteration they come from L2 (the whole batch of K⁻¹ at
-// B = 512 fits the card's 50 MB L2), never from device memory twice in a
-// row. The alternatives weighed: a thread-block cluster of G blocks with one
-// resident K⁻¹ each is the single-scenario kernel under another launch shape
-// (the scenarios exchange nothing), and K⁻¹ split over shared memory and
-// registers still cannot hold 512 KB on one SM (256 KB of registers + 227 KB
-// of shared memory). With G = 8 a batch of 512 fills only 64 of the 132 SMs,
-// so this kernel is expected to run slower than admm_segment at that shape;
-// it is the faithful port of the grouped program, kept with its measured
-// time.
+// What bounds it on an H100: not the bytes. Each K⁻¹ is read from device
+// memory once (64 KB a scenario at P = 128; 33.6 MB at B = 512 is 10 µs at
+// 3.35 TB/s), in however many waves the batch takes, so a second wave
+// re-reads nothing. What sets the time is the chain of one iteration — the
+// block's barrier, the FMAs, the reduction of a column's partial sums across
+// lanes — and the instructions 32 warps an SM execute for it. Two variants:
 //
-// Layout: grid B/G, block G·P threads; thread (g, j) owns coordinate j of
-// scenario g with x_j, z_j, y_j and its bounds in registers. The P threads of
-// one scenario meet at their own named barrier (id g + 1), so the scenarios
-// of a group do not wait for each other and one scenario's elementwise phase
-// overlaps another's mat-vec. x̃_j = Σ_i rhs_i·K⁻¹[i, j] runs over i in
-// ascending order, resident rows first, the same order as admm_segment.cu.
-// Plain fp32 FMA on CUDA cores, no TF32.
+// - "registers" (P = 128): one scenario a block of 512 threads with K⁻¹ in
+//   their registers (32 floats a thread, ≤ 64 registers, two blocks an SM,
+//   264 scenarios a wave), in a layout of its own (grouped_reg_kernel) whose
+//   reduction takes 5 shuffles a column where admm_segment's takes 9.
+//   Tried and dropped (PERF.md §6): a second K⁻¹ a block in shared memory
+//   ("paired", four scenarios an SM, one wave at B = 512): reading 64 KB of
+//   shared memory a scenario-iteration costs more than a second wave;
+//   one column of 32 rows a thread (8 rhs float4 reads a thread, 4-way bank
+//   conflicts) and 16 rows × 2 columns (no faster than 8 × 4).
+// - "streamed" (any other P, a multiple of 32 up to 1024): one thread per
+//   coordinate, K⁻¹ re-read through L2 every iteration — admm_segment's
+//   streamed kernel (admm_segment.cuh).
+// Plain fp32 FMA on CUDA cores, no TF32; __syncthreads() only.
 
-#include <cuda_runtime.h>
+#include "admm_segment.cuh"
 
 namespace {
 
-constexpr int kMaxSmem = 232448;   // 227 KB per block on Hopper
-constexpr int kMaxThreads = 1024;  // threads per block
-constexpr int kMaxBarriers = 15;   // named barriers 1..15 (0 is __syncthreads)
+constexpr int kRegP = 128;        // padded size of the registers variant
+constexpr int kThreads = 512;     // 16 warps x 2 halves x 16 lanes
+constexpr int kMaxP = 1024;       // the streamed variant: a thread a coordinate
 
-// clip(v, lo, hi) = min(max(v, lo), hi) with NaN propagated, as jnp.clip
-__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
-}
-
-// barrier of the `count` threads that use barrier `id`
-__device__ __forceinline__ void scenario_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-__global__ void __launch_bounds__(kMaxThreads) admm_segment_grouped_kernel(
+// One scenario a block, K⁻¹ in registers. Half h of warp w owns the columns
+// 8w + 4h .. +3; its lane l' = lane mod 16 holds rows 4l'..4l'+3 and
+// 64 + 4l'..64 + 4l'+3 of them (32 floats). An iteration reads the lane's
+// eight rhs entries as two float4 (a half-warp reads 256 contiguous bytes),
+// runs 32 FMAs in four accumulators (one a column, rows in ascending order),
+// and sums each column over the 16 lanes of the half: two transposing steps
+// halve the columns a lane keeps (lane l ends with column 8w + l/4), two more
+// shuffles add the four lanes that share it — 5 shuffles and 6 selects where
+// admm_segment's layout (4 rows × 8 columns, 32 lanes a column) needs 9 and
+// 14. The four lanes then update x̃_c alike, the first writes the next rhs.
+// One __syncthreads() an iteration.
+__global__ void __launch_bounds__(kThreads, 2) grouped_reg_kernel(
     const float* __restrict__ kinv, const float* __restrict__ q,
     const float* __restrict__ lb, const float* __restrict__ ub,
     const float* __restrict__ rho, const float* __restrict__ rhoi,
     const float* __restrict__ x0, const float* __restrict__ z0,
     const float* __restrict__ y0, float* __restrict__ xo,
-    float* __restrict__ zo, float* __restrict__ yo, int P, int G,
-    int rows_res, float sigma, float alpha, float one_minus_alpha,
-    int length) {
-  extern __shared__ float smem[];
-  const int g = threadIdx.x / P;  // scenario within the group
-  const int j = threadIdx.x % P;  // coordinate
-  float* s_rhs = smem + g * P;                                    // [P]
-  float* s_k = smem + G * P + static_cast<size_t>(g) * rows_res * P;
-  const size_t b = static_cast<size_t>(blockIdx.x) * G + g;
-  const float* kb = kinv + b * P * P;
-  const size_t v = b * P + j;
-  const int bar = g + 1;
+    float* __restrict__ zo, float* __restrict__ yo, float sigma, float alpha,
+    float one_minus_alpha, int length) {
+  __shared__ float4 s_rhs[2][kRegP / 4];
+  const unsigned kFull = 0xffffffffu;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lh = lane & 15;
+  const float* kb = kinv + static_cast<size_t>(b) * kRegP * kRegP +
+                    8 * warp + 4 * (lane >> 4);
 
-  {
-    const float4* src = reinterpret_cast<const float4*>(kb);
-    float4* dst = reinterpret_cast<float4*>(s_k);
-    for (int e = j; e < rows_res * P / 4; e += P) dst[e] = src[e];
+  // K⁻¹[row(a), 8w + 4h .. +3], row(a) = 4l' + a, then 64 + 4l' + a − 4
+  float4 k[8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int row = (a < 4 ? 0 : 64) + 4 * lh + (a & 3);
+    k[a] = __ldg(reinterpret_cast<const float4*>(kb + row * kRegP));
   }
-  const float qj = q[v], lbj = lb[v], ubj = ub[v];
-  const float rj = rho[v], rij = rhoi[v];
+
+  const int c = 8 * warp + (lane >> 2);
+  const bool writer = (lane & 3) == 0;
+  const size_t v = static_cast<size_t>(b) * kRegP + c;
+  const float qc = q[v], lbc = lb[v], ubc = ub[v];
+  const float rc = rho[v], ric = rhoi[v];
   float x = x0[v], z = z0[v], y = y0[v];
-  scenario_sync(bar, P);
+  const bool up8 = (lane & 8) != 0, up4 = (lane & 4) != 0;
 
   for (int it = 0; it < length; ++it) {
-    s_rhs[j] = sigma * x - qj + rj * z - y;
-    scenario_sync(bar, P);
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int i = 0; i < rows_res; ++i)
-      acc = fmaf(s_rhs[i], s_k[i * P + j], acc);
-#pragma unroll 8
-    for (int i = rows_res; i < P; ++i)
-      acc = fmaf(s_rhs[i], __ldg(kb + i * P + j), acc);
-    scenario_sync(bar, P);  // s_rhs is rewritten by the next iteration
-    const float x_n = alpha * acc + one_minus_alpha * x;
-    const float z_un = alpha * acc + one_minus_alpha * z + y * rij;
-    const float z_n = clip_nan(z_un, lbj, ubj);
-    y = rj * (z_un - z_n);
-    x = x_n;
-    z = z_n;
+    float* rhs_w = reinterpret_cast<float*>(s_rhs[it & 1]);
+    if (writer) rhs_w[c] = sigma * x - qc + rc * z - y;
+    __syncthreads();
+    const float4 r0 = s_rhs[it & 1][lh], r1 = s_rhs[it & 1][16 + lh];
+    const float rr[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      acc[0] = fmaf(rr[a], k[a].x, acc[0]);
+      acc[1] = fmaf(rr[a], k[a].y, acc[1]);
+      acc[2] = fmaf(rr[a], k[a].z, acc[2]);
+      acc[3] = fmaf(rr[a], k[a].w, acc[3]);
+    }
+    float v2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float send = up8 ? acc[i] : acc[i + 2];
+      const float keep = up8 ? acc[i + 2] : acc[i];
+      v2[i] = keep + __shfl_xor_sync(kFull, send, 8);
+    }
+    const float send = up4 ? v2[0] : v2[1];
+    const float keep = up4 ? v2[1] : v2[0];
+    float xt = keep + __shfl_xor_sync(kFull, send, 4);
+    xt += __shfl_xor_sync(kFull, xt, 2);
+    xt += __shfl_xor_sync(kFull, xt, 1);
+    admm_update(xt, lbc, ubc, rc, ric, alpha, one_minus_alpha, x, z, y);
   }
-  xo[v] = x;
-  zo[v] = z;
-  yo[v] = y;
+  if (writer) {
+    xo[v] = x;
+    zo[v] = z;
+    yo[v] = y;
+  }
 }
 
 }  // namespace
 
-// Returns a CUDA error code, or -1 when the shape is outside what the
-// kernel takes (the Python wrapper checks the same conditions first).
+// Returns a CUDA error code; cudaErrorInvalidValue where the shape is
+// outside what the kernel takes (the Python wrapper checks the same first).
+// `group` is checked, not used: the placement is chosen by P alone, as
+// ops/kernels.grouped_plan says.
 extern "C" int admm_segment_grouped_launch(
     const float* kinv, const float* q, const float* lb, const float* ub,
     const float* rho, const float* rhoi, const float* x0, const float* z0,
     const float* y0, float* xo, float* zo, float* yo, int B, int P, int G,
     float sigma, float alpha, float one_minus_alpha, int length,
     cudaStream_t stream) {
-  if (G < 1 || G > kMaxBarriers || P < 32 || P % 32 || G * P > kMaxThreads ||
-      B % G)
-    return -1;
-  const size_t row_bytes = sizeof(float) * static_cast<size_t>(G) * P;
-  int rows_res = static_cast<int>((kMaxSmem - row_bytes) / row_bytes);
-  if (rows_res > P) rows_res = P;
-  const size_t smem = row_bytes * (1 + rows_res);
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_segment_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B > 0) {
-    admm_segment_grouped_kernel<<<B / G, G * P, smem, stream>>>(
-        kinv, q, lb, ub, rho, rhoi, x0, z0, y0, xo, zo, yo, P, G, rows_res,
-        sigma, alpha, one_minus_alpha, length);
+  if (G < 1 || B % G || P < 32 || P % 32 || P > kMaxP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B);
+  cfg.stream = stream;
+  cudaError_t err;
+  if (P == kRegP) {
+    cfg.blockDim = dim3(kThreads);
+    err = cudaLaunchKernelEx(&cfg, grouped_reg_kernel, kinv, q, lb, ub, rho,
+                             rhoi, x0, z0, y0, xo, zo, yo, sigma, alpha,
+                             one_minus_alpha, length);
+  } else {
+    cfg.blockDim = dim3(P);
+    cfg.dynamicSmemBytes = sizeof(float) * P;
+    err = cudaLaunchKernelEx(&cfg, admm_segment_streamed_kernel, kinv, q, lb,
+                             ub, rho, rhoi, x0, z0, y0, xo, zo, yo, P, sigma,
+                             alpha, one_minus_alpha, length);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

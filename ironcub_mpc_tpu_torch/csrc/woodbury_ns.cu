@@ -1,8 +1,10 @@
 // woodbury_ns — (K(ρ_new))⁻¹ from (K(ρ_old))⁻¹: rank-n_box Woodbury update
 // with a Gauss–Jordan capacitance inverse, n_ns Newton–Schulz steps,
-// symmetrised output. Every intermediate stays in shared memory and
-// registers; a scenario runs on one thread block or on a cluster of 8 blocks
-// that read each other's strips through distributed shared memory.
+// symmetrised output. Two tuned routes (P = 128 and P = 256, n_box ≤ 128)
+// keep every intermediate in shared memory and registers; a scenario runs on
+// one thread block or on a cluster of 8 blocks that read each other's strips
+// through distributed shared memory. The general route takes every other
+// shape up to P = 1024 (see its section below).
 //
 // Replaces the TPU kernel ironcub_mpc_tpu/ops/pallas_solve.py
 // `woodbury_ns` (body `_woodbury_kernel`). It computes the same function,
@@ -69,6 +71,20 @@
 //   U when both do not fit) | pivot arrays [4, 128] and d [128] | at C > 1
 //   the gathered operand [P, P] (P = 128) or [R, P] (P = 256)
 // with n8, n4 = n rounded up to 8, 4; T and the K strip only for n_ns > 0.
+//
+// The general route (any P up to 1024, any box; ops/kernels.woodbury_plan
+// sends it the shapes the tuned routes do not take, such as a control
+// horizon of 13 with joint limits: P = 256, n_box 132). A simple design that
+// is right first: one block of 256 threads a scenario, the intermediates X,
+// W or K, and 2I − KX in a per-scenario device scratch [3, P, P] that the
+// wrapper allocates on the launch's stream, products as 64 × 64 output tiles
+// (4 × 4 a thread, 32-deep shared-memory tiles, masked at ragged edges), the
+// association and rounding of the plain version step for step. The
+// Gauss–Jordan elimination runs in place on [n, n] with the plain version's
+// rounding (division by the pivot, a rounded product subtracted), in shared
+// memory while it fits (n ≤ 231) and in the scratch beyond (n = 528 at
+// P = 640: 528 steps over 1.1 MB on one SM, timed in PERF.md). Bound: as
+// the tuned routes; at B = 1 only one SM works.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -705,6 +721,213 @@ cudaError_t launch(const float* kinv, const float* h, const float* d,
                             out, box0, n_box, sigma, n_ns);
 }
 
+// ---------------------------------------------------------------------------
+// The general route: every shape the two tuned routes above do not take
+// ---------------------------------------------------------------------------
+
+constexpr int kGenTile = 64;              // output tile edge
+constexpr int kGenDepth = 32;             // depth of a shared-memory tile
+constexpr int kGenLdA = kGenTile + 1;     // padded row of the A tile
+constexpr int kGenTileFloats = kGenDepth * kGenLdA + kGenDepth * kGenTile;
+constexpr int kMaxGeneralP = 1024;
+
+enum Epilogue { kStore = 0, kSubFromBase = 1, kTwoIMinus = 2 };
+
+// floats of the pivot row and column, each rounded up to 4
+__host__ __device__ constexpr int general_vec_floats(int n) {
+  return 2 * ((n + 3) / 4 * 4);
+}
+
+// whether the in-place Gauss–Jordan matrix [n, n] fits shared memory beside
+// the product tiles and the pivot vectors (n ≤ 231)
+__host__ __device__ inline bool general_gj_in_smem(int n) {
+  const long floats = static_cast<long>(kGenTileFloats) +
+                      general_vec_floats(n) + static_cast<long>(n) * n;
+  return 4 * floats <= kMaxSmem;
+}
+
+__host__ __device__ inline int general_smem_floats(int n) {
+  return kGenTileFloats + general_vec_floats(n) +
+         (general_gj_in_smem(n) ? n * n : 0);
+}
+
+// device scratch of one scenario: X, W or K, 2I − KX [3, P, P], and the
+// Gauss–Jordan matrix [n, n] when shared memory cannot hold it
+__host__ __device__ inline long general_scratch_floats(int P, int n) {
+  return 3L * P * P + (general_gj_in_smem(n) ? 0 : static_cast<long>(n) * n);
+}
+
+// C = epi(A·diag?·B) for an [M, K] A and a [K, N] B (any M, N, K), both in
+// device memory, by the whole block: 64 × 64 output tiles, 4 × 4 a thread,
+// 32-deep shared-memory tiles, the depth summed in ascending order. With
+// `bscale`, row k of B is taken as bscale[k]·B[k, :], each product rounded
+// as the plain version rounds d ⊙ K⁻¹. kSubFromBase stores base − A·B,
+// kTwoIMinus 2I − A·B.
+template <int EPI>
+__device__ void general_matmul(const float* A, int lda, const float* B,
+                               int ldb, const float* bscale, float* C,
+                               int ldc, const float* base, int M, int N,
+                               int K, float* sA, float* sB) {
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tc = tid % 16;
+  for (int m0 = 0; m0 < M; m0 += kGenTile) {
+    for (int n0 = 0; n0 < N; n0 += kGenTile) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+      for (int k0 = 0; k0 < K; k0 += kGenDepth) {
+        for (int e = tid; e < kGenTile * kGenDepth; e += kThreads) {
+          const int m = e / kGenDepth, k = e % kGenDepth;
+          const bool in = m0 + m < M && k0 + k < K;
+          sA[k * kGenLdA + m] = in ? A[(m0 + m) * lda + k0 + k] : 0.0f;
+        }
+        for (int e = tid; e < kGenDepth * kGenTile; e += kThreads) {
+          const int k = e / kGenTile, c = e % kGenTile;
+          float v = 0.0f;
+          if (k0 + k < K && n0 + c < N) {
+            v = B[(k0 + k) * ldb + n0 + c];
+            if (bscale != nullptr) v = __fmul_rn(bscale[k0 + k], v);
+          }
+          sB[k * kGenTile + c] = v;
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int k = 0; k < kGenDepth; ++k) {
+          float a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = sA[k * kGenLdA + tr * 4 + i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = sB[k * kGenTile + tc * 4 + j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = m0 + tr * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + tc * 4 + j;
+          if (r < M && c < N) {
+            float v = acc[i][j];
+            if (EPI == kSubFromBase) v = base[r * ldc + c] - v;
+            if (EPI == kTwoIMinus) v = (r == c ? 2.0f : 0.0f) - v;
+            C[r * ldc + c] = v;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// G = M⁻¹ in place on A [n, n] (shared or device memory): the elimination
+// of the plain version on [M | I], no pivoting, where column i of the
+// in-place form holds the right half's column i from step i on. Each step
+// rounds as the plain version does: the pivot row divided by the clamped
+// pivot, the update a rounded product subtracted.
+__device__ void general_gauss_jordan(float* A, int n, float* prow,
+                                     float* pcol) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kThreads / 32;
+  for (int i = 0; i < n; ++i) {
+    const float piv = clamp_pivot(A[i * n + i]);
+    for (int c = tid; c < n; c += kThreads)
+      prow[c] = (c == i ? 1.0f : A[i * n + c]) / piv;
+    for (int r = tid; r < n; r += kThreads) pcol[r] = A[r * n + i];
+    __syncthreads();
+    for (int r = warp; r < n; r += kWarps) {
+      float* row = A + r * n;
+      if (r == i) {
+        for (int c = lane; c < n; c += 32) row[c] = prow[c];
+      } else {
+        const float cr = pcol[r];
+        for (int c = lane; c < n; c += 32)
+          row[c] = (c == i ? 0.0f : row[c]) - __fmul_rn(cr, prow[c]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One block per scenario, intermediates in a per-scenario device scratch
+// (see general_scratch_floats), the products as general_matmul tiles:
+//   M = I + d_box ⊙ X₀[box, box];  G = M⁻¹           (Gauss–Jordan)
+//   W = G·(d_box ⊙ X₀[box, :]);    X = X₀ − X₀[:, box]·W
+//   n_ns times: K = H + σI + diag(ρ_new);  X ← X·(2I − K·X)
+//   out = ½(X + Xᵀ)
+// the association of the plain version, step for step.
+__global__ void __launch_bounds__(kThreads) woodbury_ns_general_kernel(
+    const float* __restrict__ kinv, const float* __restrict__ h,
+    const float* __restrict__ dvec, const float* __restrict__ rho,
+    float* __restrict__ out, float* __restrict__ scratch, int P, int box0,
+    int n, float sigma, int n_ns) {
+  float* smem = dyn_smem();
+  float* sA = smem;
+  float* sB = sA + kGenDepth * kGenLdA;
+  float* prow = smem + kGenTileFloats;
+  float* pcol = prow + general_vec_floats(n) / 2;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const size_t PP = static_cast<size_t>(P) * P;
+  const float* Ki = kinv + b * PP;
+  const float* Hb = h + b * PP;
+  const float* d = dvec + static_cast<size_t>(b) * P;
+  const float* rh = rho + static_cast<size_t>(b) * P;
+  float* S0 = scratch + b * general_scratch_floats(P, n);
+  float* S1 = S0 + PP;
+  float* S2 = S1 + PP;
+  float* gj = general_gj_in_smem(n) ? prow + general_vec_floats(n) : S2 + PP;
+
+  // 1. M, rounded as capacitance() rounds it, then G = M⁻¹ in place
+  for (int r = tid / 32; r < n; r += kThreads / 32)
+    for (int c = tid % 32; c < n; c += 32)
+      gj[r * n + c] = (r == c ? 1.0f : 0.0f) +
+                      __fmul_rn(d[box0 + r], Ki[(box0 + r) * P + box0 + c]);
+  __syncthreads();
+  general_gauss_jordan(gj, n, prow, pcol);
+
+  // 2. W [n, P] into S1, X into S0
+  general_matmul<kStore>(gj, n, Ki + box0 * P, P, d + box0, S1, P, nullptr,
+                         n, P, n, sA, sB);
+  general_matmul<kSubFromBase>(Ki + box0, P, S1, P, nullptr, S0, P, Ki, P, P,
+                               n, sA, sB);
+
+  // 3. Newton–Schulz: K into the free buffer, 2I − K·X into S2, X·(2I − KX)
+  // over K
+  float* X = S0;
+  float* F = S1;
+  for (int s = 0; s < n_ns; ++s) {
+    for (size_t e = tid; e < PP; e += kThreads) {
+      const int r = static_cast<int>(e / P), c = static_cast<int>(e % P);
+      float kv = Hb[e];
+      if (r == c) kv = kv + sigma + rh[r];
+      F[e] = kv;
+    }
+    __syncthreads();
+    general_matmul<kTwoIMinus>(F, P, X, P, nullptr, S2, P, nullptr, P, P, P,
+                               sA, sB);
+    general_matmul<kStore>(X, P, S2, P, nullptr, F, P, nullptr, P, P, P, sA,
+                           sB);
+    float* t = X;
+    X = F;
+    F = t;
+  }
+
+  // 4. out = ½(X + Xᵀ)
+  float* o = out + b * PP;
+  for (size_t e = tid; e < PP; e += kThreads) {
+    const int r = static_cast<int>(e / P), c = static_cast<int>(e % P);
+    o[e] = 0.5f * (X[e] + X[static_cast<size_t>(c) * P + r]);
+  }
+}
+
 }  // namespace
 
 // shared memory in bytes that a block of a cluster of `cluster` needs
@@ -728,6 +951,43 @@ extern "C" int woodbury_ns_launch(const float* kinv, const float* h,
     err = launch<128, 8>(kinv, h, d, rho, out, B, box0, n_box, sigma, n_ns, stream);
   else if (P == 256 && cluster == 8)
     err = launch<256, 8>(kinv, h, d, rho, out, B, box0, n_box, sigma, n_ns, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The general route's dynamic shared memory in bytes and its device scratch
+// in floats per scenario.
+extern "C" int woodbury_ns_general_smem_bytes(int n_box) {
+  return 4 * general_smem_floats(n_box);
+}
+
+extern "C" long woodbury_ns_general_scratch_floats(int P, int n_box) {
+  return general_scratch_floats(P, n_box);
+}
+
+// `scratch` holds B · woodbury_ns_general_scratch_floats(P, n_box) floats
+// that no other launch in flight uses (the wrapper allocates it per call on
+// the launch's stream).
+extern "C" int woodbury_ns_general_launch(
+    const float* kinv, const float* h, const float* d, const float* rho,
+    float* out, float* scratch, int B, int P, int box0, int n_box,
+    float sigma, int n_ns, cudaStream_t stream) {
+  if (P < 1 || P > kMaxGeneralP || box0 < 0 || n_box < 1 ||
+      box0 + n_box > P || n_ns < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(float) * general_smem_floats(n_box);
+  cudaError_t err = cudaFuncSetAttribute(
+      woodbury_ns_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, woodbury_ns_general_kernel, kinv, h, d, rho,
+                           out, scratch, P, box0, n_box, sigma, n_ns);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,18 +7,22 @@ Counterpart of ``ironcub_mpc_tpu/ops/pallas_solve.py``:
   over-relaxed ADMM iterations with K⁻¹ resident on chip, in registers at
   P = 128 (``csrc/admm_segment.cu``; :func:`segment_plan` picks the variant).
 - :func:`admm_segment_grouped` replaces ``pallas_solve.admm_segment_grouped``
-  — the same segment with ``group`` scenarios advanced by one program
-  (``csrc/admm_segment_grouped.cu``); the batched head-to-head of
-  ``tools/bench_segment_kernels_torch.py`` runs it, the tick does not.
+  — the same segment over a batch, every K⁻¹ in the registers of one block
+  at P = 128 in a layout whose column sums take fewer shuffles than
+  :func:`admm_segment`'s (``csrc/admm_segment_grouped.cu``;
+  :func:`grouped_plan` picks the route);
+  the batched head-to-head of ``tools/bench_segment_kernels_torch.py`` runs
+  it, the tick does not.
 - :func:`woodbury_ns` replaces ``pallas_solve.woodbury_ns`` — the rank-n_box
   Woodbury ρ-refresh of K⁻¹ with its Gauss–Jordan capacitance inverse,
   Newton–Schulz steps and symmetrised output, a scenario on one thread block
-  or on a cluster of 8 (``csrc/woodbury_ns.cu``; :func:`woodbury_plan` picks
-  the cluster size).
+  or on a cluster of 8, or, for the shapes those do not take, on one block
+  with a device scratch (``csrc/woodbury_ns.cu``; :func:`woodbury_plan`
+  picks the route and the cluster size).
 
 All take the full, lane-padded layout of the Pallas kernels with a leading
 batch dimension B: matrices [B, P, P], vectors [B, P] (P = 128 for the
-stock nU = 120; both tick kernels also take P = 256). Box entries sit at ``box0:``; outside the box ρ = 0, 1/ρ =
+stock nU = 120; every padded size up to 1024, on the card too). Box entries sit at ``box0:``; outside the box ρ = 0, 1/ρ =
 0 and the bounds are ±inf_bound, so no masks are needed.
 
 A wrapper runs its plain twin only because its tensors lie on the CPU. For
@@ -47,11 +51,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {"admm_segment": "admm_segment.cu",
            "admm_segment_grouped": "admm_segment_grouped.cu",
            "woodbury_ns": "woodbury_ns.cu"}
-# the most dynamic shared memory one block may use on Hopper (227 KB), the
-# most threads of one block and its named barriers besides __syncthreads
+# the most dynamic shared memory one block may use on Hopper (227 KB) and
+# the most threads of one block
 MAX_SMEM = 232448
 MAX_THREADS = 1024
-MAX_NAMED_BARRIERS = 15
 MAX_CLUSTER = 8
 NUM_SMS = 132
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,7 +83,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the headers a source may include count towards its tag
+    src = b"".join(path.read_bytes() for path in
+                   [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}_{tag}.so"
 
@@ -126,6 +131,13 @@ def _lib(name: str):
             fn.argtypes = [p] * 5 + [i, i, i, i, f, i, i, p]
             lib.woodbury_ns_smem_bytes.restype = i
             lib.woodbury_ns_smem_bytes.argtypes = [i, i, i, i]
+            lib.woodbury_ns_general_launch.restype = i
+            lib.woodbury_ns_general_launch.argtypes = (
+                [p] * 6 + [i, i, i, i, f, i, p])
+            lib.woodbury_ns_general_smem_bytes.restype = i
+            lib.woodbury_ns_general_smem_bytes.argtypes = [i]
+            lib.woodbury_ns_general_scratch_floats.restype = ctypes.c_long
+            lib.woodbury_ns_general_scratch_floats.argtypes = [i, i]
         _libs[name] = lib
     return lib
 
@@ -274,30 +286,38 @@ def admm_segment_grouped_plain(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b,
     return x.reshape(B, P), z.reshape(B, P), y.reshape(B, P)
 
 
+def grouped_plan(B: int, P: int, group: int) -> dict:
+    """The launch :func:`admm_segment_grouped` makes: :func:`segment_plan`'s
+    rule and shapes (the source's launcher picks its variant by P as
+    csrc/admm_segment.cu's does), after checking that ``group`` divides B.
+
+    ``group`` is not used: the placement follows the card. At P = 128 each
+    scenario's K⁻¹ stays in the registers of one block of 512 threads for
+    the whole segment, two blocks an SM, in the grouped kernel's own layout;
+    any other padded size (a multiple of 32 up to 1024) streams K⁻¹ through
+    L2, one thread a coordinate."""
+    _check_group(B, group)
+    return segment_plan(B, P)
+
+
 def admm_segment_grouped(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b,
                          y_b, *, sigma: float, alpha: float, length: int,
                          group: int = 8):
-    """Batched ADMM segment, ``group`` scenarios per program.
+    """Batched ADMM segment, ``group`` scenarios per program on the TPU.
 
     ``Kinv_b`` is [B, P, P], every vector [B, P] in the full layout, B
     divisible by ``group``. Returns the updated ``(x, z, y)``, each [B, P].
-    On the card one thread block advances its ``group`` scenarios, so
-    ``group · P`` must fit a block's 1024 threads and ``group`` its 15 named
-    barriers (group ≤ 8 at P = 128); a larger group raises."""
+    ``group`` keeps only its contract: B must be divisible by it, and every
+    group gives the same result. On the card the placement is
+    :func:`grouped_plan`'s, chosen by P (any padded size that is a multiple
+    of 32 up to 1024)."""
     B, P = Kinv_b.shape[0], Kinv_b.shape[-1]
     _check_group(B, group)
     if not _dispatch("admm_segment_grouped", Kinv_b):
         return admm_segment_grouped_plain(
             Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b, y_b,
             sigma=sigma, alpha=alpha, length=length, group=group)
-    if P % 32 or P < 32:
-        raise ValueError(f"admm_segment_grouped: padded size {P} must be a "
-                         "positive multiple of 32")
-    if group * P > MAX_THREADS or group > MAX_NAMED_BARRIERS:
-        raise ValueError(
-            f"admm_segment_grouped: group {group} x padded size {P} does not "
-            f"fit one thread block ({MAX_THREADS} threads, "
-            f"{MAX_NAMED_BARRIERS} scenario barriers)")
+    grouped_plan(B, P, group)
     vecs = dict(q_b=q_b, lb_b=lb_b, ub_b=ub_b, rho_b=rho_b, rhoi_b=rhoi_b,
                 x_b=x_b, z_b=z_b, y_b=y_b)
     _check_segment(Kinv_b, vecs)
@@ -360,17 +380,22 @@ def woodbury_ns_plain(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
 
 WOODBURY_THREADS = 256
 # padded size -> the cluster sizes (blocks a scenario is spread over) the
-# kernel is built for; at P = 256 only a cluster's shared memory holds X and T
+# tuned routes are built for; at P = 256 only a cluster's shared memory
+# holds X and T
 WOODBURY_CLUSTERS = {128: (1, 8), 256: (8,)}
-# the widest box the Gauss–Jordan elimination takes
+# the widest box the tuned routes' elimination takes
 WOODBURY_MAX_BOX = LANE
 # floats beside the matrices: pivot rows and columns [2][2][128] and d [128]
 WOODBURY_VEC_FLOATS = 5 * LANE
+# the largest padded size of the general route (segment_plan's cap)
+WOODBURY_MAX_P = 1024
+# the general route's product tiles in shared memory: A [32, 65], B [32, 64]
+WOODBURY_GENERAL_TILE_FLOATS = 32 * 65 + 32 * 64
 
 
 def woodbury_smem_bytes(n_box: int, n_ns: int = 1, cluster: int = 1,
                         P: int = LANE) -> int:
-    """Dynamic shared memory of one block of the woodbury_ns kernel when a
+    """Dynamic shared memory of one block of the tuned routes when a
     scenario is spread over ``cluster`` blocks (``make_layout`` of
     csrc/woodbury_ns.cu, kept in step by tests/test_torch_kernels.py): the
     strip of X [R, P], G [n8, P] (later the strip of T [R, P]), U [R, n4],
@@ -390,26 +415,60 @@ def woodbury_smem_bytes(n_box: int, n_ns: int = 1, cluster: int = 1,
     return 4 * (rest + max(u, h))
 
 
+def _general_gj_in_smem(n_box: int) -> bool:
+    vec = 2 * (-(-n_box // 4) * 4)
+    return 4 * (WOODBURY_GENERAL_TILE_FLOATS + vec + n_box * n_box) <= MAX_SMEM
+
+
+def woodbury_general_smem_bytes(n_box: int) -> int:
+    """Dynamic shared memory of one block of the general route
+    (``general_smem_floats`` of csrc/woodbury_ns.cu): the product tiles,
+    the pivot row and column (n_box rounded up to 4 each) and, while it
+    fits (n_box ≤ 231), the Gauss–Jordan matrix [n_box, n_box]."""
+    vec = 2 * (-(-n_box // 4) * 4)
+    gj = n_box * n_box if _general_gj_in_smem(n_box) else 0
+    return 4 * (WOODBURY_GENERAL_TILE_FLOATS + vec + gj)
+
+
+def woodbury_general_scratch_floats(P: int, n_box: int) -> int:
+    """Device scratch of one scenario of the general route
+    (``general_scratch_floats``): X, W or K, and 2I − KX [3, P, P], and the
+    Gauss–Jordan matrix where shared memory does not hold it."""
+    return 3 * P * P + (0 if _general_gj_in_smem(n_box) else n_box * n_box)
+
+
 def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
                   cluster: int | None = None) -> dict:
-    """The launch :func:`woodbury_ns` makes: the cluster size (blocks a
-    scenario is spread over), the blocks, the threads of a block and its
-    shared memory.
+    """The launch :func:`woodbury_ns` makes: the route, the cluster size
+    (blocks a scenario is spread over), the blocks, the threads of a block,
+    its shared memory and the device scratch (floats).
 
-    One rule. At P = 128 a scenario fits one block; it is spread over 8 only
-    where there is a product worth splitting (a Newton–Schulz step, or a box
-    wider than the 32 a single pass inverts) and every block of the batch
-    still has an SM of its own (B · 8 ≤ 132), so a lone scenario draws on 8
-    SMs; a batch that fills the card loses time to gathering the peers'
-    strips (PERF.md has both timed on an H100). At P = 256 the matrices fit
-    only a cluster of 8. ``cluster`` forces a size the kernel is built for
-    (the card tests time both)."""
-    if P not in WOODBURY_CLUSTERS:
-        raise ValueError(f"woodbury_ns: the kernel is built for padded sizes "
-                         f"{tuple(WOODBURY_CLUSTERS)}, got {P}")
-    if n_box > WOODBURY_MAX_BOX:
-        raise ValueError(f"woodbury_ns: n_box={n_box} is wider than the "
-                         f"{WOODBURY_MAX_BOX} the elimination takes")
+    The tuned routes take P = 128 and P = 256 with n_box ≤ 128, everything
+    in shared memory and registers. At P = 128 a scenario fits one block; it
+    is spread over 8 only where there is a product worth splitting (a
+    Newton–Schulz step, or a box wider than the 32 a single pass inverts)
+    and every block of the batch still has an SM of its own (B · 8 ≤ 132),
+    so a lone scenario draws on 8 SMs; a batch that fills the card loses
+    time to gathering the peers' strips (PERF.md has both timed on an H100).
+    At P = 256 the matrices fit only a cluster of 8. ``cluster`` forces a
+    size the tuned routes are built for (the card tests time both).
+
+    Every other padded size that is a multiple of 128 up to 1024, and every
+    wider box, takes the ``general`` route: one block a scenario, its
+    intermediates in a device scratch."""
+    if P % LANE or not 0 < P <= WOODBURY_MAX_P:
+        raise ValueError(f"woodbury_ns: padded size {P} must be a multiple "
+                         f"of {LANE} up to {WOODBURY_MAX_P}")
+    if P not in WOODBURY_CLUSTERS or n_box > WOODBURY_MAX_BOX:
+        if cluster is not None:
+            raise ValueError(f"woodbury_ns: cluster size {cluster} forced at "
+                             f"padded size {P}, n_box {n_box}: the general "
+                             "route runs one block a scenario")
+        return dict(route="general", cluster=1, blocks=B,
+                    threads=WOODBURY_THREADS,
+                    smem_bytes=woodbury_general_smem_bytes(n_box),
+                    scratch_floats=B * woodbury_general_scratch_floats(
+                        P, n_box))
     sizes = WOODBURY_CLUSTERS[P]
     if cluster is None:
         split = n_ns > 0 or n_box > 32
@@ -422,8 +481,8 @@ def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
     if smem > MAX_SMEM:
         raise ValueError(f"woodbury_ns: n_box={n_box} needs more shared "
                          "memory than one block has")
-    return dict(cluster=cluster, blocks=B * cluster,
-                threads=WOODBURY_THREADS, smem_bytes=smem)
+    return dict(route="tuned", cluster=cluster, blocks=B * cluster,
+                threads=WOODBURY_THREADS, smem_bytes=smem, scratch_floats=0)
 
 
 def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
@@ -432,9 +491,10 @@ def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
 
     ``Kinv_p`` and ``H_p`` are [B, P, P]; ``d_f`` = ρ_new − ρ_old and
     ``rho_f`` = ρ_new are [B, P] in the full layout (zero outside the box
-    entries [box0, box0 + n_box)). Returns the symmetrised [B, P, P].
-    ``cluster`` overrides the cluster size :func:`woodbury_plan` would
-    choose (card only)."""
+    entries [box0, box0 + n_box)). Returns the symmetrised [B, P, P]. On the
+    card P is a multiple of 128 up to 1024 with any box (``woodbury_plan``
+    picks the route); a larger P raises. ``cluster`` overrides the cluster
+    size the plan would choose where a tuned route runs (card only)."""
     P = Kinv_p.shape[-1]
     if box0 < 0 or n_box < 1 or box0 + n_box > P:
         raise ValueError(
@@ -448,11 +508,20 @@ def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
     _check(dict(Kinv_p=Kinv_p, H_p=H_p, d_f=d_f, rho_f=rho_f), Kinv_p.device,
            dict(Kinv_p=(B, P, P), H_p=(B, P, P), d_f=(B, P), rho_f=(B, P)))
     out = torch.empty_like(Kinv_p)
-    fn = _lib("woodbury_ns").woodbury_ns_launch
+    lib = _lib("woodbury_ns")
     with torch.cuda.device(Kinv_p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in (Kinv_p, H_p, d_f, rho_f, out)),
-                B, P, int(box0), int(n_box), float(sigma), int(n_ns),
+        ptrs = [t.data_ptr() for t in (Kinv_p, H_p, d_f, rho_f, out)]
+        if plan["route"] == "general":
+            # allocated on this stream, so no launch in flight shares it
+            scratch = torch.empty(plan["scratch_floats"],
+                                  dtype=torch.float32, device=Kinv_p.device)
+            rc = lib.woodbury_ns_general_launch(
+                *ptrs, scratch.data_ptr(), B, P, int(box0), int(n_box),
+                float(sigma), int(n_ns), stream)
+        else:
+            rc = lib.woodbury_ns_launch(
+                *ptrs, B, P, int(box0), int(n_box), float(sigma), int(n_ns),
                 plan["cluster"], stream)
     _raise_on(rc, "woodbury_ns")
     woodbury_ns.launches += 1

@@ -213,6 +213,8 @@ def test_segment_plan_matches_the_cuda_source():
 def test_woodbury_plan_fits_the_card(p, n_box, batch, n_ns):
     plan = kernels.woodbury_plan(batch, p, n_box, n_ns)
     c = plan["cluster"]
+    # the tuned routes keep every shape they took before the general route
+    assert plan["route"] == "tuned" and plan["scratch_floats"] == 0
     assert c in kernels.WOODBURY_CLUSTERS[p] and c <= kernels.MAX_CLUSTER
     assert plan["blocks"] == batch * c
     assert plan["threads"] == kernels.WOODBURY_THREADS <= kernels.MAX_THREADS
@@ -234,14 +236,18 @@ def test_woodbury_plan_fits_the_card(p, n_box, batch, n_ns):
 
 
 def test_woodbury_plan_refuses_what_the_kernel_does_not_take():
-    for p in (64, 192, 384):
-        with pytest.raises(ValueError, match="padded sizes"):
+    for p in (64, 192, 1152, 2048):
+        with pytest.raises(ValueError, match="multiple of 128 up to 1024"):
             kernels.woodbury_plan(1, p, 24, 1)
     for p, c in ((128, 0), (128, 2), (128, 4), (128, 16), (256, 1)):
         with pytest.raises(ValueError, match="cluster size"):
             kernels.woodbury_plan(1, p, 24, 1, c)
-    with pytest.raises(ValueError, match="wider"):
-        kernels.woodbury_plan(1, 256, 129, 1)
+    # P = 384 and a box wider than 128 go to the general route, where no
+    # cluster size can be forced
+    for p, n_box in ((384, 24), (256, 129)):
+        assert kernels.woodbury_plan(1, p, n_box, 1)["route"] == "general"
+        with pytest.raises(ValueError, match="general route"):
+            kernels.woodbury_plan(1, p, n_box, 1, 8)
     # a lone scenario keeps its cluster up to the batch whose blocks still
     # have an SM each
     assert kernels.woodbury_plan(16, 128, 24, 1)["cluster"] == 8
@@ -252,6 +258,86 @@ def test_woodbury_plan_refuses_what_the_kernel_does_not_take():
                 for n in range(1, kernels.WOODBURY_MAX_BOX + 1)
                 for ns in (0, 1))
     assert worst <= kernels.MAX_SMEM
+
+
+@pytest.mark.parametrize("batch", [1, 16, 64])
+@pytest.mark.parametrize("p,n_box", [(256, 129), (256, 132), (256, 231), (256, 232),
+                                     (384, 80), (640, 8), (640, 528),
+                                     (1024, 1024)])
+def test_woodbury_plan_general_route(p, n_box, batch):
+    """One block a scenario with a device scratch, every shape the tuned
+    routes do not take up to P = 1024: the shared memory fits a block, the
+    Gauss–Jordan matrix moves to the scratch above n_box 231."""
+    plan = kernels.woodbury_plan(batch, p, n_box, 1)
+    assert plan["route"] == "general" and plan["cluster"] == 1
+    assert plan["blocks"] == batch
+    assert plan["threads"] == kernels.WOODBURY_THREADS
+    assert 0 < plan["smem_bytes"] <= kernels.MAX_SMEM
+    in_smem = n_box <= 231
+    assert plan["scratch_floats"] == batch * (
+        3 * p * p + (0 if in_smem else n_box * n_box))
+    assert (plan["smem_bytes"] >= 4 * n_box * n_box) == in_smem
+
+
+def test_woodbury_general_layout_matches_the_cuda_source():
+    """The general route's shared memory and scratch, from the constants
+    parsed out of csrc/woodbury_ns.cu: product tiles A [32, 65] and
+    B [32, 64], the pivot row and column, the Gauss–Jordan matrix while it
+    fits."""
+    text, c = _cuda_constants("woodbury_ns.cu")
+    assert c["kMaxGeneralP"] == kernels.WOODBURY_MAX_P
+    assert c["kGenLdA"] == c["kGenTile"] + 1
+    assert c["kGenTileFloats"] == kernels.WOODBURY_GENERAL_TILE_FLOATS == \
+        c["kGenDepth"] * c["kGenLdA"] + c["kGenDepth"] * c["kGenTile"]
+    assert "return 3L * P * P + (general_gj_in_smem(n) ? 0" in text
+    for n in range(1, 1025):
+        vec = 2 * ((n + 3) // 4 * 4)
+        fits = 4 * (c["kGenTileFloats"] + vec + n * n) <= c["kMaxSmem"]
+        assert fits == (n <= 231)
+        assert kernels.woodbury_general_smem_bytes(n) == 4 * (
+            c["kGenTileFloats"] + vec + (n * n if fits else 0))
+
+
+@pytest.mark.parametrize("p", [128, 256, 384])
+@pytest.mark.parametrize("batch,group", [(1, 1), (256, 8), (265, 5),
+                                         (512, 16), (1056, 8)])
+def test_grouped_plan_fits_the_card(p, batch, group):
+    """K⁻¹ in the registers of one block a scenario at P = 128, any other
+    size streamed, as segment_plan says; ``group`` changes nothing but the
+    check that it divides B."""
+    plan = kernels.grouped_plan(batch, p, group)
+    assert plan == kernels.grouped_plan(batch, p, 1) == \
+        kernels.segment_plan(batch, p)
+    assert plan["variant"] == ("registers" if p == 128 else "streamed")
+    assert plan["blocks"] == batch
+    assert plan["threads"] <= kernels.MAX_THREADS
+
+
+def test_grouped_plan_refuses_what_the_kernel_does_not_take():
+    for p in (0, 100, 1056):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            kernels.grouped_plan(8, p, 1)
+    with pytest.raises(ValueError, match="batch 32 not divisible by group 5"):
+        kernels.grouped_plan(32, 128, 5)
+    with pytest.raises(ValueError, match="group must be >= 1"):
+        kernels.grouped_plan(32, 128, 0)
+
+
+def test_grouped_plan_matches_the_cuda_source():
+    """The grouped source launches as segment_plan says: the register
+    variant at P = 128 (512 threads, 1 KB of static shared memory), else
+    the shared streamed kernel."""
+    text, c = _cuda_constants("admm_segment_grouped.cu")
+    assert c["kRegP"] == kernels.LANE
+    assert c["kThreads"] == kernels.SEGMENT_REG_THREADS
+    assert c["kMaxP"] == kernels.MAX_THREADS
+    assert "__shared__ float4 s_rhs[2][kRegP / 4];" in text
+    plan = kernels.grouped_plan(1, kernels.LANE, 1)
+    assert plan["smem_bytes"] == 2 * c["kRegP"] * 4
+    assert "if (P == kRegP) {" in text
+    assert "cfg.blockDim = dim3(kThreads);" in text
+    assert "cfg.blockDim = dim3(P);" in text
+    assert "cfg.dynamicSmemBytes = sizeof(float) * P;" in text
 
 
 def _layout_bytes(c, P, n, n_ns, cluster):

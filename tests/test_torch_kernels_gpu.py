@@ -113,10 +113,12 @@ def test_admm_segment_cuda_matches_twin(cuda, batch, length):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,length,group",
-                         [(512, 40, 8), (256, 5, 8), (16, 7, 4), (6, 3, 2),
-                          (5, 3, 1)])
+                         [(512, 40, 8), (512, 40, 16), (512, 40, 4),
+                          (512, 40, 1), (256, 5, 8), (1056, 10, 8), (16, 7, 4),
+                          (6, 3, 2), (5, 3, 1), (265, 4, 5)])
 def test_admm_segment_grouped_cuda_matches_twin_and_single(cuda, batch,
                                                            length, group):
+    """Every group, one wave (B ≤ 264) and more than one."""
     ins = {k: torch.as_tensor(v) for k, v in
            _segment_inputs(4, batch, nu=120, box0=96).items()}
     kw = dict(sigma=SIGMA, alpha=ALPHA, length=length)
@@ -130,27 +132,78 @@ def test_admm_segment_grouped_cuda_matches_twin_and_single(cuda, batch,
     for g, r, s in zip(got, ref, single):
         np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
                                    atol=1e-4)
-        # the single-scenario kernel sums a column's 128 products as 32 row
-        # parts joined by shuffles, the grouped kernel in row order: the two
-        # agree as each agrees with the twin, no longer bit for bit
+        # the two kernels sum a column in different orders (8 × 4 row parts
+        # joined by 5 shuffles here, 4 × 8 by 9 in admm_segment): they agree
+        # as each agrees with the twin, not bit for bit
         np.testing.assert_allclose(g.cpu().numpy(), s.cpu().numpy(), rtol=0,
                                    atol=1e-4)
 
 
 @pytest.mark.gpu
 def test_admm_segment_grouped_cuda_refuses_what_does_not_fit(cuda):
-    """A group that does not fit one thread block raises; nothing falls back
-    to another kernel or to the twin."""
-    ins = [torch.as_tensor(v).to(cuda) for v in
+    """A group of 16 at B = 32 (refused by the previous design, one block of
+    16 × 128 threads) now agrees with the twin; a group that does not divide
+    the batch still raises, and nothing falls back to another kernel or to
+    the twin."""
+    cpu = [torch.as_tensor(v) for v in
            _segment_inputs(4, 32, nu=120, box0=96).values()]
+    ins = [v.to(cuda) for v in cpu]
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=2)
     before = kernels.admm_segment_grouped.launches
-    with pytest.raises(ValueError, match="does not fit one thread block"):
-        kernels.admm_segment_grouped(*ins, sigma=SIGMA, alpha=ALPHA, length=2,
-                                     group=16)
+    got = kernels.admm_segment_grouped(*ins, group=16, **kw)
+    ref = kernels.admm_segment_grouped_plain(*cpu, group=16, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-4)
     with pytest.raises(ValueError, match="not divisible"):
-        kernels.admm_segment_grouped(*ins, sigma=SIGMA, alpha=ALPHA, length=2,
-                                     group=5)
-    assert kernels.admm_segment_grouped.launches == before
+        kernels.admm_segment_grouped(*ins, group=5, **kw)
+    assert kernels.admm_segment_grouped.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,p,variant", [(64, P, "registers"),
+                                             (64, P2, "streamed"),
+                                             (8, 384, "streamed")])
+def test_admm_segment_grouped_routes_cuda_match_twin(cuda, batch, p,
+                                                     variant):
+    """Each variant of grouped_plan, every group that divides the batch
+    giving the same result."""
+    assert kernels.grouped_plan(batch, p, 8)["variant"] == variant
+    nu, box0 = (120, 96) if p == P else (p - 16, p - 64)
+    ins = {k: torch.as_tensor(v) for k, v in
+           _segment_inputs(9, batch, nu=nu, box0=box0, p=p).items()}
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=5)
+    ref = kernels.admm_segment_grouped_plain(*ins.values(), group=8, **kw)
+    on_card = [v.to(cuda) for v in ins.values()]
+    got = [kernels.admm_segment_grouped(*on_card, group=g, **kw)
+           for g in (1, 8)]
+    torch.cuda.synchronize()
+    for a, b, r in zip(*got, ref):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_admm_segment_grouped_cuda_keeps_nan_in_its_lane(cuda):
+    """A NaN in one scenario's state stays in that scenario; its neighbours
+    match the twin."""
+    ins = {k: torch.as_tensor(v) for k, v in
+           _segment_inputs(3, 300, nu=120, box0=96).items()}
+    ins["x_f"][5, 7] = float("nan")
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=5, group=4)
+    ref = kernels.admm_segment_grouped_plain(*ins.values(), **kw)
+    got = kernels.admm_segment_grouped(*(v.to(cuda) for v in ins.values()),
+                                       **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        g = g.cpu().numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(r.numpy()))
+        assert np.isnan(g[5, :120]).all()
+        keep = np.arange(300) != 5
+        np.testing.assert_allclose(g[keep], r.numpy()[keep], rtol=0,
+                                   atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -254,15 +307,15 @@ def test_woodbury_ns_cuda_other_boxes(cuda, nu, box0, cluster):
                                atol=1e-5)
 
 
-def _clamp_inputs(box0, nu=120):
+def _clamp_inputs(box0, nu=120, p=P):
     """A diagonal K⁻¹ and a ρ step that give the capacitance matrix an
     exactly zero pivot (index 3) and, after the elimination of pivot 7, a
     pivot of −2⁻⁴³ (index 8): both inside the clamp, on either side."""
     n = nu - box0
     rng = np.random.default_rng(5)
-    x = np.zeros((1, P, P), np.float32)
+    x = np.zeros((1, p, p), np.float32)
     x[0, np.arange(nu), np.arange(nu)] = rng.uniform(0.5, 1.5, nu)
-    d = np.zeros((1, P), np.float32)
+    d = np.zeros((1, p), np.float32)
     d[0, box0:nu] = rng.uniform(-0.3, 0.6, n)
     b = box0
     x[0, b + 3, b + 3], d[0, b + 3] = 2.0, -0.5          # M[3, 3] = 0
@@ -270,7 +323,7 @@ def _clamp_inputs(box0, nu=120):
     x[0, b + 7, b + 8] = 2.0 ** -10                      # M[7, 8] = 2⁻¹¹
     x[0, b + 8, b + 7] = -(2.0 ** -12) * (1 + 2.0 ** -19)
     x[0, b + 8, b + 8], d[0, b + 8] = 1 - 2.0 ** -24, -1.0   # M[8, 8] = 2⁻²⁴
-    zero = np.zeros((1, P, P), np.float32)
+    zero = np.zeros((1, p, p), np.float32)
     return [torch.as_tensor(v) for v in (x, zero, d, np.zeros_like(d))]
 
 
@@ -298,16 +351,65 @@ def test_woodbury_ns_cuda_twice_the_stock_horizon(cuda, nu, box0, n_ns,
 
 @pytest.mark.gpu
 def test_woodbury_ns_cuda_refuses_what_does_not_fit(cuda):
-    """A padded size the kernel is not built for and a box wider than the
-    elimination takes raise; nothing falls back to the twin."""
+    """P = 384 and a box of 240 at P = 256 (refused before the general
+    route) now agree with the twin; a padded size above 1024 still raises,
+    and nothing falls back to the twin."""
+    for p, nu, box0 in ((384, 288, 264), (P2, NU2, 0)):
+        _, _, ins = _woodbury_inputs(11, 2, nu, box0, p=p)
+        ins = {k: torch.as_tensor(v) for k, v in ins.items()}
+        kw = dict(box0=box0, n_box=nu - box0, sigma=SIGMA, n_ns=1)
+        assert kernels.woodbury_plan(2, p, nu - box0, 1)["route"] == "general"
+        ref = kernels.woodbury_ns_plain(*ins.values(), **kw)
+        got = kernels.woodbury_ns(*(v.to(cuda) for v in ins.values()), **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                                   atol=1e-5)
     before = kernels.woodbury_ns.launches
-    for p, n_box, match in ((384, 24, "padded sizes"), (P2, 240, "wider")):
-        m = torch.zeros(1, p, p, device=cuda)
-        v = torch.zeros(1, p, device=cuda)
-        with pytest.raises(ValueError, match=match):
-            kernels.woodbury_ns(m, m, v, v, box0=0, n_box=n_box, sigma=SIGMA,
-                                n_ns=1)
+    m = torch.zeros(1, 1152, 1152, device=cuda)
+    v = torch.zeros(1, 1152, device=cuda)
+    with pytest.raises(ValueError, match="up to 1024"):
+        kernels.woodbury_ns(m, m, v, v, box0=0, n_box=24, sigma=SIGMA, n_ns=1)
     assert kernels.woodbury_ns.launches == before
+
+
+# (P, nU, box0, batch, n_ns): the general route at chip_smoke.py's shapes
+GENERAL_SHAPES = [(P2, 132, 0, 1, 0), (P2, 132, 0, 64, 1), (384, 288, 208, 1, 1),
+                  (640, 528, 520, 16, 1), (640, 528, 0, 1, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,nu,box0,batch,n_ns", GENERAL_SHAPES)
+def test_woodbury_ns_general_cuda_matches_twin(cuda, p, nu, box0, batch,
+                                               n_ns):
+    """The general route: a box wider than 128 at P = 256 (a control horizon
+    of 13 with joint limits), P = 384 and P = 640, the Gauss–Jordan matrix
+    in shared memory (n_box ≤ 231) and in the device scratch (528)."""
+    _, _, ins = _woodbury_inputs(12, batch, nu, box0, p=p)
+    ins = {k: torch.as_tensor(v) for k, v in ins.items()}
+    kw = dict(box0=box0, n_box=nu - box0, sigma=SIGMA, n_ns=n_ns)
+    assert kernels.woodbury_plan(batch, p, nu - box0, n_ns)["route"] == \
+        "general"
+    ref = kernels.woodbury_ns_plain(*ins.values(), **kw)
+    before = kernels.woodbury_ns.launches
+    got = kernels.woodbury_ns(*(v.to(cuda) for v in ins.values()), **kw)
+    torch.cuda.synchronize()
+    assert kernels.woodbury_ns.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5)
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.gpu
+def test_woodbury_ns_general_cuda_pivot_clamp(cuda):
+    """The clamp of the general route's elimination, n_box 132 at P = 256."""
+    ins = _clamp_inputs(0, nu=132, p=P2)
+    kw = dict(box0=0, n_box=132, sigma=SIGMA, n_ns=0)
+    ref = kernels.woodbury_ns_plain(*ins, **kw)
+    assert ref[0, 3, 3] > 1e12 and ref[0, 8, 8] < -1e11
+    got = kernels.woodbury_ns(*(v.to(cuda) for v in ins), **kw).cpu()
+    assert torch.isfinite(got).all()
+    rel = (got - ref).abs() / ref.abs().clamp_min(1.0)
+    assert float(rel.max()) < 1e-5
 
 
 @pytest.mark.gpu
@@ -333,7 +435,8 @@ def test_woodbury_ns_cuda_pivot_clamp(cuda, box0, cluster):
 @pytest.mark.gpu
 def test_woodbury_smem_bytes_matches_the_built_kernel(cuda):
     """The Python layout equals make_layout of the compiled source."""
-    fn = kernels._lib("woodbury_ns").woodbury_ns_smem_bytes
+    lib = kernels._lib("woodbury_ns")
+    fn = lib.woodbury_ns_smem_bytes
     for p, clusters in kernels.WOODBURY_CLUSTERS.items():
         for n_box in (1, 7, 24, 32, 33, 48, 100, 120, 128):
             for n_ns in (0, 1, 2):
@@ -341,6 +444,11 @@ def test_woodbury_smem_bytes_matches_the_built_kernel(cuda):
                     assert fn(p, n_box, n_ns, c) == \
                         kernels.woodbury_smem_bytes(n_box, n_ns, c, p), \
                         (p, n_box, n_ns, c)
+    for n_box in (1, 8, 80, 132, 231, 232, 528, 1024):
+        assert lib.woodbury_ns_general_smem_bytes(n_box) == \
+            kernels.woodbury_general_smem_bytes(n_box)
+        assert lib.woodbury_ns_general_scratch_floats(1024, n_box) == \
+            kernels.woodbury_general_scratch_floats(1024, n_box)
 
 
 def _solve_twice(dev, batch=3, nu=NU2, box0=BOX02):
@@ -370,6 +478,22 @@ def _solve_twice(dev, batch=3, nu=NU2, box0=BOX02):
                            rho_prev=cold.rho_vec,
                            rho_scalar_prev=cold.rho_scalar)
     return cold, warm
+
+
+@pytest.mark.gpu
+def test_solve_on_card_with_a_box_wider_than_128(cuda):
+    """nU = 132 with every input boxed (a control horizon of 13 with joint
+    limits) pads to P = 256: the refresh takes the general route, and the
+    solve agrees with its own CPU run."""
+    before = kernels.woodbury_ns.launches
+    got = _solve_twice(cuda, nu=132, box0=0)
+    torch.cuda.synchronize()
+    assert kernels.woodbury_ns.launches > before
+    ref = _solve_twice(torch.device("cpu"), nu=132, box0=0)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.status.cpu(), r.status)
+        np.testing.assert_allclose(g.u.cpu().numpy(), r.u.numpy(), rtol=0,
+                                   atol=1e-4)
 
 
 @pytest.mark.gpu

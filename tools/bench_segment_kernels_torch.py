@@ -11,8 +11,9 @@ three candidates:
    other two are held against.
 2. `cuda-single` — the single-scenario kernel, one thread block per
    scenario with K⁻¹ resident in its registers (ops/kernels.admm_segment).
-3. `cuda-group8` — the grouped kernel, 8 scenarios per thread block
-   (ops/kernels.admm_segment_grouped).
+3. `cuda-group8` — the grouped kernel with group 8
+   (ops/kernels.admm_segment_grouped; its placement is grouped_plan's,
+   K⁻¹ in the registers of one block a scenario, whatever the group).
 
 Usage: python tools/bench_segment_kernels_torch.py [batch=512] [iters=40]
 Prints per-variant time and segments/s. Runs on ``cuda``; ``main`` takes
