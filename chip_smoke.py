@@ -16,10 +16,15 @@ Phases (any failure exits non-zero):
              can choose (admm_segment: K⁻¹ in registers at P = 128, streamed
              through L2 at P = 256; woodbury_ns: one block or a cluster of 8
              at P = 128, a cluster of 8 at P = 256) is held against the twin
-             and timed as well, at batch 1, 64 and 256, and woodbury_ns's
+             and timed as well, at batch 1, 64 and 256 (and the stock
+             chunk and refresh at the sweep's batch, 1024), and woodbury_ns's
              general route (one block a scenario, a device scratch) at the
              shapes the tuned routes do not take: P = 256 with n_box 132 (a
-             control horizon of 13 with joint limits), P = 384 and P = 640.
+             control horizon of 13 with joint limits), P = 384, P = 640 and
+             P = 1152 (above a block's 1024 threads; there the segments
+             stream K⁻¹ with two coordinates a thread), each with
+             torch.linalg.inv_ex beside it; admm_segment's wide variant
+             (state and rhs in device memory) at P = 4224.
              The previous design's times stand beside the new ones, and the
              script fails where a kernel is more than 10 % slower than its
              previous design at a main-path shape, or where woodbury_ns at
@@ -51,6 +56,19 @@ Phases (any failure exits non-zero):
              wind per lane over the first 20 s of the mission (4000 ticks,
              fewer if the time budget says so), ``flight_stats`` per lane
              and the flight-regression bounds on the wind-free lane 0.
+7. sweep     the Monte-Carlo sweep (``parallel.run_sweep``) at full width:
+             1024 scenarios, the size of one level of SWEEP_r05.json, wind
+             σ = 5 N, recovery on, 200 ticks in chunks of 100 (fewer ticks,
+             never fewer scenarios, if a 5-tick probe says they will not fit
+             90 s), from the settled, configured carry of the mission start;
+             the statistics' checks, read-backs and kernel launches per
+             tick and the kernels' profiler time at B = 1024; then 16
+             scenarios × 8 ticks resumed from a checkpoint after 4 against
+             an uninterrupted run (counts equal, errors within 1e-6 m), and
+             the same 16 × 8 through the port on the CPU, traced lane-tick
+             by lane-tick: statuses equal but SOLVED / SOLVED_INACCURATE
+             flips whose residuals agree within a factor 10, errors within
+             1e-4 m.
 
 Launch counters are zeroed just before each path is driven and read just
 after; every kernel of a path must have launched in it. Prints the card's
@@ -89,22 +107,38 @@ N_TICKS, N_CHECK, BATCH = 40, 20, 256
 # a long horizon with joint limits: nU = 8·13 + 4·7 = 132 -> P = 256, n_box 132
 LONG_HORIZON = dict(control_horizon=13, use_joint_position_constraint=True)
 LH_TICKS, LH_CHECK, LH_BATCH = 10, 5, 64
+# P = 1152 (nU = 1140), above the 1024 threads of a block: a box of 8 and
+# of 132 (box0 = nU − n_box)
+BIG_P, BIG_NU, BIG_BOX0S = 1152, 1140, (1132, 1008)
+# the segments' wide variant (five coordinates a thread, state and rhs in
+# device memory): P = 4224, nU = 4200, a box of 132
+WIDE_P, WIDE_NU, WIDE_BOX0 = 4224, 4200, 4068
 # the head-to-head shape of the grouped segment, and the tick's chunk shape
 SEG_BATCH, SEG_ITERS, GROUP = 512, 40, 8
-# (batch, length, group, P) of the grouped rows: every group at the
-# head-to-head shape, the tick's chunk at batch 1, 64 and 256 (beside
-# admm_segment's 4 × 8 layout), four waves (B = 1056), P = 256
-GROUPED_SHAPES = [(SEG_BATCH, SEG_ITERS, g, P) for g in (1, 4, 8, 16)] + [
-    (1, 5, 1, P), (64, 5, 1, P), (BATCH, 5, GROUP, P),
-    (1056, SEG_ITERS, GROUP, P), (64, 5, GROUP, P2)]
+# (batch, length, group, P, nU, box0) of the grouped rows: every group at
+# the head-to-head shape, the tick's chunk at batch 1, 64 and 256 (beside
+# admm_segment's 4 × 8 layout), four waves (B = 1056), P = 256, and
+# P = 1152 with a box of 8 and of 132
+GROUPED_SHAPES = [(SEG_BATCH, SEG_ITERS, g, P, NU, BOX0)
+                  for g in (1, 4, 8, 16)] + [
+    (1, 5, 1, P, NU, BOX0), (64, 5, 1, P, NU, BOX0),
+    (BATCH, 5, GROUP, P, NU, BOX0), (1056, SEG_ITERS, GROUP, P, NU, BOX0),
+    (64, 5, GROUP, P2, NU2, BOX02)] + [
+    (1, 5, 1, BIG_P, BIG_NU, b0) for b0 in BIG_BOX0S]
 # (P, nU, box0, batches, n_ns) of woodbury_ns's general route
 WOODBURY_GENERAL = [(P2, 132, 0, (1, 64), (0, 1)), (384, 288, 208, (1,), (1,)),
-                    (640, 528, 520, (1, 16), (1,)), (640, 528, 0, (1,), (0,))]
+                    (640, 528, 520, (1, 16), (1,)), (640, 528, 0, (1,), (0,))
+                    ] + [(BIG_P, BIG_NU, b0, (1,), (0, 1)) for b0 in BIG_BOX0S]
 # closed-loop flight: 2 s at batch 1; the first 20 s of the mission at batch
-# 64 unless the whole script would pass FLIGHT_DEADLINE_S
+# 64 unless the whole script, the sweep phase after it included, would pass
+# SCRIPT_BUDGET_S
 FLIGHT_B1_S, FLIGHT_SETTLE_S = 2.0, 2.0
 FLIGHT_BATCH, FLIGHT_SLICE_S, WIND_STD_N = 64, 20.0, 2.0
-FLIGHT_DEADLINE_S = 600.0
+SCRIPT_BUDGET_S = 620.0
+# the Monte-Carlo sweep: one level of SWEEP_r05.json at full width
+SWEEP_SCEN, SWEEP_TICKS, SWEEP_CHUNK, SWEEP_BUDGET_S = 1024, 200, 100, 90.0
+SWEEP_WIND_N, SWEEP_SEED = 5.0, 500      # the tool's seed int(w_std · 100)
+RESUME_LANES, RESUME_TICKS = 16, 8
 
 # Device ms of the previous designs of admm_segment (K⁻¹ in shared memory, one
 # thread per coordinate) and woodbury_ns (intermediates in a device-memory
@@ -283,7 +317,7 @@ def _previous(row):
     return PREVIOUS_MS.get(key, {}).get(row["batch"])
 
 
-def segment_row(K, ins, batch, length, p=P):
+def segment_row(K, ins, batch, length, p=P, n_box=NU - BOX0):
     """One admm_segment row: the kernel against the twin, its time and its
     bound."""
     kw = dict(sigma=SIGMA, alpha=ALPHA, length=length)
@@ -298,8 +332,8 @@ def segment_row(K, ins, batch, length, p=P):
           f"{variant}: err {err:.3e} > {tol}")
     bms, by = segment_bound(batch, length, p)
     return dict(
-        name="admm_segment", batch=batch, length=length, P=p, variant=variant,
-        forced=False, max_abs_err=err, tol=tol,
+        name="admm_segment", batch=batch, length=length, P=p, n_box=n_box,
+        variant=variant, forced=False, max_abs_err=err, tol=tol,
         ms=cuda_ms(lambda: K.admm_segment(*ins, **kw)),
         plain_ms=cuda_ms(lambda: K.admm_segment_plain(*ins, **kw), reps=10),
         bound_ms=bms, bound_by=by, library_ms=None)
@@ -339,9 +373,20 @@ def phase_kernels(K, dev, record):
             rows.append(segment_row(K, ins, batch, length))
         ins = list(segment_inputs(batch, 40 + batch, dev, NU2, BOX02,
                                   P2).values())
-        rows.append(segment_row(K, ins, batch, 5, p=P2))
+        rows.append(segment_row(K, ins, batch, 5, p=P2, n_box=NU2 - BOX02))
+    # the sweep's shape: 1024 scenarios, the tick's chunk of 5
+    ins = list(segment_inputs(SWEEP_SCEN, 10 + SWEEP_SCEN, dev).values())
+    rows.append(segment_row(K, ins, SWEEP_SCEN, 5))
+    # above a block's 1024 threads: two coordinates a thread
+    for box0 in BIG_BOX0S:
+        ins = list(segment_inputs(1, 50, dev, BIG_NU, box0, BIG_P).values())
+        rows.append(segment_row(K, ins, 1, 5, p=BIG_P, n_box=BIG_NU - box0))
+    ins = list(segment_inputs(1, 51, dev, WIDE_NU, WIDE_BOX0, WIDE_P).values())
+    rows.append(segment_row(K, ins, 1, 5, p=WIDE_P, n_box=WIDE_NU - WIDE_BOX0))
     tuned = [(p, nu, box0, (1, FLIGHT_BATCH, BATCH), (0, 1))
              for p, nu, box0 in ((P, NU, BOX0), (P, NU, 0), (P2, NU2, BOX02))]
+    # the sweep's refresh (n_ns 1) and polish operator (n_ns 0)
+    tuned.append((P, NU, BOX0, (SWEEP_SCEN,), (0, 1)))
     for p, nu, box0, batches, ns_steps in tuned + WOODBURY_GENERAL:
         for batch in batches:
             ins = list(woodbury_inputs(batch, box0, 20 + box0 + batch, dev,
@@ -423,8 +468,7 @@ def grouped_rows(K, dev):
     GROUPED_SHAPES."""
     bmm_segment = segment_tool().torch_bmm_segment
     rows = []
-    for batch, length, group, p in GROUPED_SHAPES:
-        nu, box0 = (NU, BOX0) if p == P else (NU2, BOX02)
+    for batch, length, group, p, nu, box0 in GROUPED_SHAPES:
         ins = segment_inputs(batch, 30 + batch, dev, nu, box0, p)
         kw = dict(sigma=SIGMA, alpha=ALPHA, length=length)
         got = K.admm_segment_grouped(*ins.values(), group=group, **kw)
@@ -443,7 +487,8 @@ def grouped_rows(K, dev):
         bms, by = segment_bound(batch, length, p)
         rows.append(dict(
             name="admm_segment_grouped", batch=batch, length=length,
-            group=group, P=p, variant=variant, forced=False, max_abs_err=err,
+            group=group, P=p, n_box=nu - box0, variant=variant, forced=False,
+            max_abs_err=err,
             err_vs_single=err1, tol=tol,
             ms=cuda_ms(lambda: K.admm_segment_grouped(
                 *ins.values(), group=group, **kw)),
@@ -721,7 +766,8 @@ def profile_window(run, n=10):
     ours = {}
     for ev in on_card:
         for name, marks in (("admm_segment", ("admm_segment_reg_kernel",
-                                              "admm_segment_streamed_kernel")),
+                                              "admm_segment_streamed_kernel",
+                                              "admm_segment_wide_kernel")),
                             ("woodbury_ns", ("woodbury_ns_kernel",
                                              "woodbury_ns_general_kernel"))):
             if any(m in ev.key for m in marks):
@@ -849,6 +895,7 @@ def phase_flight(K, dev, record):
     # from the same settled state
     s = loop.settle(flight.standing_state(loop.plant, q0_deg),
                     FLIGHT_SETTLE_S)
+    settled = s
     problem, carry = loop.configure(s, channels, alpha)
     loop_c, _, _ = flight.build_flight_loop(device="cpu")
     problem_c, carry_c = loop_c.configure(convert.to_device(s, "cpu"),
@@ -926,7 +973,8 @@ def phase_flight(K, dev, record):
     loop_b.rollout(problem, carry, 20)
     torch.cuda.synchronize()
     probe_ms = 1e3 * (time.perf_counter() - t0) / 20
-    left_s = FLIGHT_DEADLINE_S - (time.perf_counter() - T_START) - 20.0
+    left_s = (SCRIPT_BUDGET_S - (time.perf_counter() - T_START) - 20.0
+              - sweep_reserve_s(probe_ms))
     full = int(round(FLIGHT_SLICE_S / period))
     n_ticks = max(200, min(full, int(1e3 * left_s / (1.1 * probe_ms))))
     K.reset_launches()
@@ -979,6 +1027,230 @@ def phase_flight(K, dev, record):
     print(f"[flight] batch{B}: lane 0 {st0}")
     print(f"[flight] batch{B}: lanes min/max {spread}")
     record["flight"] = out
+    return out, (loop, settled, channels, alpha)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the Monte-Carlo sweep (path C)
+# ---------------------------------------------------------------------------
+
+
+def sweep_reserve_s(flight_ms_per_tick):
+    """Seconds to keep for the sweep phase, from the batch-64 flight's ms a
+    tick (a 1024-lane sweep tick took 0.97–1.25× as long on the same host
+    in the runs of PERF.md): its probe, run, profile and resume ticks with a
+    margin of 1.5, and 25 s for the CPU check and the set-up."""
+    ticks = 5 + SWEEP_TICKS + 2 + 2 * RESUME_TICKS
+    return 1.5 * ticks * flight_ms_per_tick / 1e3 + 25.0
+
+
+def _finite_stats(res):
+    """Every statistic of a SweepResult is finite (a lane that diverged
+    shows as +inf in lane_max_err; none is allowed to here)."""
+    return all(bool(torch.isfinite(getattr(res, f).float()).all()) for f in
+               ("mean_com_err", "max_com_err", "solved_frac",
+                "lane_max_err"))
+
+
+# a lane-tick may close SOLVED on one device and SOLVED_INACCURATE on the
+# other only where each residual, primal and dual, agrees between them
+# within this factor, the width of the solver's own SOLVED_INACCURATE band
+# (residuals up to 10× the threshold), so that each lies within it of the
+# threshold between them. The adaptive ρ divides a primal residual at
+# float32 rounding, so two devices that sum in other orders leave a ρ mark
+# with other ρ and their residuals part (3.1× in a run of PERF.md); the
+# same rule and its reasons in tests/test_torch_sweep.py
+FLIP_FACTOR = 10.0
+
+
+def lane_tick_flips(a, b):
+    """Hold two traced sweeps (``[ticks, lanes]`` status, primal and dual
+    residual) lane-tick by lane-tick; returns the allowed flips as
+    ``[tick, lane, primal a, primal b, dual a, dual b]`` rows."""
+    (sa, pa, da), (sb, pb, db) = a, b
+    check(sa.shape == sb.shape, f"sweep: traces {sa.shape} and {sb.shape}")
+    flips = []
+    for t, lane in np.argwhere(sa != sb).tolist():
+        pair = {int(sa[t, lane]), int(sb[t, lane])}
+        res = [float(v[t, lane]) for v in (pa, pb, da, db)]
+        near = all(max(x, y) <= FLIP_FACTOR * min(x, y)
+                   for x, y in (res[:2], res[2:]))
+        check(pair == {1, 2} and near,
+              f"sweep: lane {lane} at tick {t}: status {int(sa[t, lane])} "
+              f"on the card, {int(sb[t, lane])} on the CPU, residuals "
+              f"(primal, primal, dual, dual) {res}")
+        flips.append([t, lane] + res)
+    return flips
+
+
+def phase_sweep(K, dev, record, loop, settled, channels, alpha):
+    """run_sweep at 1024 scenarios from the settled, configured carry of the
+    mission start (the flight phase's loop, settled state and mission
+    inputs), then resume and card-against-CPU checks at 16 × 8."""
+    import tempfile
+
+    from ironcub_mpc_tpu_torch import convert
+    from ironcub_mpc_tpu_torch.parallel import (
+        STATUS_COLS, ScenarioConfig, make_batched_carry, run_sweep)
+    from ironcub_mpc_tpu_torch.qp import condensed
+    from ironcub_mpc_tpu_torch.runtime import flight
+    from ironcub_mpc_tpu_torch.runtime.loop import ClosedLoop
+
+    t_phase = time.perf_counter()
+    settings = dataclasses.replace(loop.settings, batch_guard=True)
+    loop_s = ClosedLoop(loop.plant, loop.cfg, settings)
+    check(loop_s.kd.n == 23 and loop_s.plant.lstm is not None
+          and settings.kernel_mode == "auto",
+          "sweep: not the 23-joint model with the LSTM jets and the kernels")
+    problem, carry = loop_s.configure(settled, channels, alpha)
+    scen = ScenarioConfig(wind_force_std=SWEEP_WIND_N, com_err_fail=1.0)
+    batched = make_batched_carry(carry, SWEEP_SCEN, scen, seed=SWEEP_SEED)
+    nu = problem.H_u.shape[-1]
+    check(K._pad_to(nu) == P, f"sweep: nU {nu} does not pad to {P}")
+
+    def sweep(n_ticks, **kw):
+        res = run_sweep(loop_s, problem, batched, n_ticks, scen=scen,
+                        recover=True, **kw)
+        torch.cuda.synchronize()
+        return res
+
+    # a 5-tick probe (the first ticks at this batch also warm the
+    # allocator) sets how many ticks fit the phase's budget
+    t0 = time.perf_counter()
+    sweep(5)
+    probe_ms = 1e3 * (time.perf_counter() - t0) / 5
+    n_ticks = min(SWEEP_TICKS, int(1e3 * SWEEP_BUDGET_S / (1.1 * probe_ms)))
+    if n_ticks < SWEEP_TICKS:
+        print(f"[sweep] WARNING: cut to {n_ticks} of {SWEEP_TICKS} ticks by "
+              f"the {SWEEP_BUDGET_S:.0f} s budget ({probe_ms:.1f} ms a tick "
+              f"in the probe); {SWEEP_SCEN} scenarios kept")
+    check(n_ticks >= 10, f"sweep: {probe_ms:.1f} ms a tick leaves "
+          f"{n_ticks} ticks in the budget")
+    K.reset_launches()
+    condensed.batch_any.syncs = 0
+    t0 = time.perf_counter()
+    res = sweep(n_ticks, chunk_ticks=SWEEP_CHUNK)
+    wall = time.perf_counter() - t0
+    launches = read_launches(K)
+    syncs = condensed.batch_any.syncs
+    for k, n in launches.items():
+        check(n > 0, f"sweep: {k} was never launched")
+    cnt = res.status_counts.cpu().numpy()
+    stats = dict(
+        n_scenarios=int(res.n_scenarios), n_failed=int(res.n_failed),
+        n_solver_bad=int(res.n_solver_bad),
+        mean_com_err=float(res.mean_com_err),
+        max_com_err=float(res.max_com_err),
+        solved_frac=float(res.solved_frac),
+        status_counts=dict(zip(STATUS_COLS, cnt.tolist())),
+        n_ticks_recovered=int(res.n_ticks_recovered),
+        n_ticks_retried=int(res.n_ticks_retried),
+        lane_max_err_max=float(res.lane_max_err.max()),
+        lane_solver_bad=int(res.lane_solver_bad.sum()))
+    check(_finite_stats(res), f"sweep: a statistic is not finite: {stats}")
+    check(int(cnt[:5].sum()) == SWEEP_SCEN * n_ticks,
+          f"sweep: the status histogram covers {int(cnt[:5].sum())} of "
+          f"{SWEEP_SCEN * n_ticks} lane-ticks")
+    check(stats["n_ticks_recovered"] <= stats["n_ticks_retried"],
+          f"sweep: more ticks recovered than retried: {stats}")
+    check(stats["solved_frac"] >= 0.99,
+          f"sweep: solved fraction {stats['solved_frac']} < 0.99")
+    # the device's busy share over one window: the first 2 ticks timed
+    # without the profiler, then the same 2 ticks under it for their
+    # device time
+    t0 = time.perf_counter()
+    sweep(2)
+    wall2_ms = 1e3 * (time.perf_counter() - t0)
+    prof = profile_window(lambda n: sweep(n), n=2)
+    busy2 = prof["device_busy_ms"]
+    prof["unprofiled_wall_ms"] = wall2_ms
+    prof["busy_share_unprofiled"] = (busy2 / wall2_ms if isinstance(
+        busy2, float) else "not measured")
+    out = dict(scenarios=SWEEP_SCEN, ticks=n_ticks, probe_ms_per_tick=probe_ms,
+               wall_s=wall, ms_per_tick=1e3 * wall / n_ticks,
+               lane_ticks_per_s=SWEEP_SCEN * n_ticks / wall,
+               result=stats, launches=launches,
+               launches_per_tick={k: n / n_ticks for k, n in launches.items()},
+               host_readbacks_per_tick=syncs / n_ticks,
+               recovery_readbacks_per_tick=1.0, profile=prof)
+    print(f"[sweep] {SWEEP_SCEN} scenarios x {n_ticks} ticks in {wall:.1f} s: "
+          f"{out['ms_per_tick']:.3f} ms/tick, {out['lane_ticks_per_s']:.1f} "
+          f"lane-ticks/s; host read-backs/tick {syncs / n_ticks:.2f} (1 of "
+          f"them the recovery predicate), launches/tick "
+          f"{out['launches_per_tick']}")
+    print(f"[sweep] result {stats}")
+    for k, v in prof["kernels"].items():
+        print(f"[sweep] {k} at B = {SWEEP_SCEN}: {v['calls']} launches, mean "
+              f"{v['mean_ms']:.4f} ms (profiler, {prof['ticks']} ticks)")
+    print(f"[sweep] profiled {prof['ticks']} ticks: device busy "
+          f"{prof['device_busy_ms']} ms of {prof['wall_ms']:.3f} ms wall "
+          f"under the profiler, of {wall2_ms:.3f} ms without it (busy share "
+          f"{prof['busy_share_unprofiled']}), "
+          f"{prof['device_kernels_per_tick']:.1f} device kernels/tick")
+
+    # resume after a checkpoint against an uninterrupted run, on the card
+    small = make_batched_carry(carry, RESUME_LANES, scen, seed=SWEEP_SEED + 1)
+
+    def small_sweep(lp, pr, b, n_ticks, ck=None, trace=None):
+        on_tick = None if trace is None else (lambda tel: trace.append(
+            (tel.solver_status, tel.pri_res, tel.dua_res)))
+        return run_sweep(lp, pr, b, n_ticks, scen=scen, recover=True,
+                         chunk_ticks=RESUME_TICKS // 2, checkpoint_dir=ck,
+                         on_tick=on_tick)
+
+    card_trace, cpu_trace = [], []
+    ref = small_sweep(loop_s, problem, small, RESUME_TICKS, trace=card_trace)
+    with tempfile.TemporaryDirectory() as ck:
+        small_sweep(loop_s, problem, small, RESUME_TICKS // 2, ck)
+        resumed = small_sweep(loop_s, problem, small, RESUME_TICKS, ck)
+    counts = ("n_failed", "n_solver_bad", "status_counts",
+              "n_ticks_recovered", "n_ticks_retried", "lane_solver_bad")
+    for f in counts:
+        check(torch.equal(getattr(resumed, f), getattr(ref, f)),
+              f"sweep: resumed {f} {getattr(resumed, f)} != "
+              f"{getattr(ref, f)}")
+    resume_err = float((resumed.lane_max_err - ref.lane_max_err).abs().max())
+    check(resume_err <= 1e-6, f"sweep: resumed lane_max_err differs by "
+          f"{resume_err:.3e} > 1e-6")
+
+    # the same 16 lanes x 8 ticks through the port on the CPU
+    loop_c, _, _ = flight.build_flight_loop(device="cpu")
+    loop_c = ClosedLoop(loop_c.plant, loop_c.cfg, dataclasses.replace(
+        loop_c.settings, batch_guard=True))
+    cpu = small_sweep(loop_c, convert.to_device(problem, "cpu"),
+                      convert.to_device(small, "cpu"), RESUME_TICKS,
+                      trace=cpu_trace)
+    # lane-tick by lane-tick: the statuses equal but SOLVED /
+    # SOLVED_INACCURATE flips whose residuals agree within FLIP_FACTOR
+    traces = [tuple(torch.stack(v).cpu().numpy() for v in zip(*tr))
+              for tr in (card_trace, cpu_trace)]
+    flips = lane_tick_flips(*traces)
+    hist = [ref.status_counts.cpu(), cpu.status_counts]
+    for (st, _, _), h in zip(traces, hist):
+        check([int((st == c).sum()) for c in range(1, 6)] == h[:5].tolist(),
+              f"sweep: a trace of {st.size} lane-ticks does not give its "
+              f"histogram {h.tolist()}")
+    cpu_err = float((cpu.lane_max_err - ref.lane_max_err.cpu()).abs().max())
+    check(torch.equal(hist[0][2:], hist[1][2:]) and torch.equal(
+        cpu.lane_solver_bad, ref.lane_solver_bad.cpu()),
+          f"sweep: status histogram on the card {hist[0].tolist()} against "
+          f"{hist[1].tolist()} on the CPU (lane_max_err within {cpu_err:.3e})")
+    check(cpu_err <= 1e-4, f"sweep: lane_max_err card vs CPU {cpu_err:.3e} "
+          "> 1e-4")
+    out["resume"] = dict(lanes=RESUME_LANES, ticks=RESUME_TICKS,
+                         lane_max_err_diff=resume_err,
+                         status_counts=ref.status_counts.tolist())
+    out["card_vs_cpu"] = dict(lane_max_err_diff=cpu_err,
+                              status_counts_cpu=cpu.status_counts.tolist(),
+                              flips=flips)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[sweep] resume after {RESUME_TICKS // 2} of {RESUME_TICKS} ticks "
+          f"({RESUME_LANES} lanes): counts equal, lane_max_err within "
+          f"{resume_err:.3e}; card vs CPU: histogram {hist[0].tolist()} "
+          f"against {hist[1].tolist()}, {len(flips)} solved lane-ticks "
+          f"flipped {flips}, lane_max_err within {cpu_err:.3e}; "
+          f"the phase took {out['phase_s']:.1f} s")
+    record["sweep"] = out
     return out
 
 
@@ -1008,7 +1280,8 @@ def main():
     seg = phase_segments(K, record)
     main_runs = phase_main(K, dev, record)
     long_runs = phase_long_horizon(K, dev, record)
-    flights = phase_flight(K, dev, record)
+    flights, start = phase_flight(K, dev, record)
+    sweep = phase_sweep(K, dev, record, *start)
     record["total_s"] = time.perf_counter() - T_START
 
     # one entry per kernel. The tick kernels at the batch-256 main-path
@@ -1026,7 +1299,7 @@ def main():
         "admm_segment_grouped": "ironcub_mpc_tpu/ops/pallas_solve.py:163",
         "woodbury_ns": "ironcub_mpc_tpu/ops/pallas_solve.py:276"}
     paths = [seg] + list(main_runs.values()) + list(long_runs.values()) \
-        + list(flights.values())
+        + list(flights.values()) + [sweep]
     line = []
     for name, sel in pick.items():
         r = next(r for r in rows if r["name"] == name

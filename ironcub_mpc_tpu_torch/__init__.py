@@ -13,7 +13,9 @@ The layout mirrors the JAX package so each counterpart is found by name:
 - ``dynamics`` kinodynamics of the reduced URDF model and the wrenches.
 - ``sim``      the 1 kHz rigid-body plant with LSTM+EKF jets.
 - ``runtime``  the recorded-flight replay loader, the mission trajectories,
-               the closed loop and the flight runner.
+               the closed loop, the flight runner and checkpoints.
+- ``parallel`` Monte-Carlo robustness sweeps over ``torch.distributed``
+               process meshes.
 - ``convert``  state carried across from the JAX package as numpy arrays.
 
 Functions take tensors with a leading batch dimension (one lane per

@@ -15,7 +15,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from .core.types import MPCCarry, RobotSnapshot
+from .core.types import MPCCarry, RobotSnapshot, tree_map
 from .ops.admm import Scaling
 from .qp.blocks import LambdaInit
 from .qp.condensed import CondensedScaling
@@ -108,9 +108,7 @@ def lstm_from_numpy(weights, device, dtype=torch.float32):
 def to_device(obj, device):
     """Tensors (also inside named tuples) moved to ``device``; None stays
     None."""
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(to_device(v, device) for v in obj))
-    return None if obj is None else obj.to(device)
+    return tree_map(lambda t: t.to(device), obj)
 
 
 def to_numpy(obj):

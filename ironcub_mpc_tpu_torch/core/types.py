@@ -98,12 +98,26 @@ class MPCOutput(NamedTuple):
     debug: DebugInfo = None
 
 
+def tree_map(fn, tree, *rest, path: str | None = None):
+    """``fn`` over the leaves of named-tuple trees of one structure, leaf by
+    leaf: ``fn(leaf, *leaves of rest)``, or ``fn(dotted path, leaf, ...)``
+    given ``path``, the prefix of the paths (``"carry"`` gives
+    ``"carry.plant.base_p"``). A None leaf of ``tree`` stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        names = tree._fields
+        return type(tree)(*(
+            tree_map(fn, *leaves,
+                     path=None if path is None else f"{path}.{name}")
+            for name, *leaves in zip(names, tree, *rest)))
+    return fn(tree, *rest) if path is None else fn(path, tree, *rest)
+
+
 def expand_lanes(nt, batch: int):
     """Repeat every tensor of a one-lane container ``batch`` times along the
     leading dimension (None fields stay None)."""
-    return type(nt)(*(None if t is None
-                      else t.expand(batch, *t.shape[1:]).contiguous()
-                      for t in nt))
+    return tree_map(lambda t: t.expand(batch, *t.shape[1:]).contiguous(), nt)
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,9 +26,13 @@
 //   first of them writes the next rhs. One __syncthreads() an iteration.
 //   ~1 KB of shared memory and at most 64 registers: two blocks an SM, so
 //   256 scenarios are one wave.
-// - "streamed" (any other P up to 1024): one thread per coordinate, K⁻¹
-//   re-read through L2 every iteration (admm_segment.cuh, shared with
-//   admm_segment_grouped.cu, as is the iteration's vector half).
+// - "streamed" (any other P up to 4096) and "wide" (beyond):
+//   ceil(P / 1024) coordinates a thread in a block of at most 1024, K⁻¹
+//   re-read through L2 every iteration, each coordinate's state in
+//   registers, or, for the wide variant, in device memory with rhs in a
+//   device scratch that the caller passes (B·P floats; `scratch` is not read
+//   at other sizes), so that device memory alone caps P (admm_segment.cuh,
+//   shared with admm_segment_grouped.cu, as is the iteration's vector half).
 // Plain fp32 FMA on CUDA cores throughout, no TF32.
 
 #include "admm_segment.cuh"
@@ -128,11 +132,10 @@ __global__ void __launch_bounds__(kRegThreads, 2) admm_segment_reg_kernel(
 extern "C" int admm_segment_launch(
     const float* kinv, const float* q, const float* lb, const float* ub,
     const float* rho, const float* rhoi, const float* x0, const float* z0,
-    const float* y0, float* xo, float* zo, float* yo, int B, int P,
-    float sigma, float alpha, float one_minus_alpha, int length,
+    const float* y0, float* xo, float* zo, float* yo, float* scratch, int B,
+    int P, float sigma, float alpha, float one_minus_alpha, int length,
     cudaStream_t stream) {
-  if (P < 32 || P % 32 != 0 || P > 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 32 || P % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B);
@@ -144,11 +147,9 @@ extern "C" int admm_segment_launch(
                              rho, rhoi, x0, z0, y0, xo, zo, yo, sigma, alpha,
                              one_minus_alpha, length);
   } else {
-    cfg.blockDim = dim3(P);
-    cfg.dynamicSmemBytes = sizeof(float) * P;
-    err = cudaLaunchKernelEx(&cfg, admm_segment_streamed_kernel, kinv, q, lb,
-                             ub, rho, rhoi, x0, z0, y0, xo, zo, yo, P, sigma,
-                             alpha, one_minus_alpha, length);
+    err = launch_streamed(cfg, kinv, q, lb, ub, rho, rhoi, x0, z0, y0, xo, zo,
+                          yo, scratch, P, sigma, alpha, one_minus_alpha,
+                          length);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

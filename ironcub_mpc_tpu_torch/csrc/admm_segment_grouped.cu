@@ -31,9 +31,10 @@
 //   shared memory a scenario-iteration costs more than a second wave;
 //   one column of 32 rows a thread (8 rhs float4 reads a thread, 4-way bank
 //   conflicts) and 16 rows × 2 columns (no faster than 8 × 4).
-// - "streamed" (any other P, a multiple of 32 up to 1024): one thread per
-//   coordinate, K⁻¹ re-read through L2 every iteration — admm_segment's
-//   streamed kernel (admm_segment.cuh).
+// - "streamed" / "wide" (any other P, a multiple of 32): ceil(P / 1024)
+//   coordinates a thread, K⁻¹ re-read through L2 every iteration —
+//   admm_segment's kernels (admm_segment.cuh); the wide variant (P > 4096)
+//   takes a device scratch of B·P floats.
 // Plain fp32 FMA on CUDA cores, no TF32; __syncthreads() only.
 
 #include "admm_segment.cuh"
@@ -42,7 +43,6 @@ namespace {
 
 constexpr int kRegP = 128;        // padded size of the registers variant
 constexpr int kThreads = 512;     // 16 warps x 2 halves x 16 lanes
-constexpr int kMaxP = 1024;       // the streamed variant: a thread a coordinate
 
 // One scenario a block, K⁻¹ in registers. Half h of warp w owns the columns
 // 8w + 4h .. +3; its lane l' = lane mod 16 holds rows 4l'..4l'+3 and
@@ -132,10 +132,10 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_reg_kernel(
 extern "C" int admm_segment_grouped_launch(
     const float* kinv, const float* q, const float* lb, const float* ub,
     const float* rho, const float* rhoi, const float* x0, const float* z0,
-    const float* y0, float* xo, float* zo, float* yo, int B, int P, int G,
-    float sigma, float alpha, float one_minus_alpha, int length,
+    const float* y0, float* xo, float* zo, float* yo, float* scratch, int B,
+    int P, int G, float sigma, float alpha, float one_minus_alpha, int length,
     cudaStream_t stream) {
-  if (G < 1 || B % G || P < 32 || P % 32 || P > kMaxP)
+  if (G < 1 || B % G || P < 32 || P % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   cudaLaunchConfig_t cfg = {};
@@ -148,11 +148,9 @@ extern "C" int admm_segment_grouped_launch(
                              rhoi, x0, z0, y0, xo, zo, yo, sigma, alpha,
                              one_minus_alpha, length);
   } else {
-    cfg.blockDim = dim3(P);
-    cfg.dynamicSmemBytes = sizeof(float) * P;
-    err = cudaLaunchKernelEx(&cfg, admm_segment_streamed_kernel, kinv, q, lb,
-                             ub, rho, rhoi, x0, z0, y0, xo, zo, yo, P, sigma,
-                             alpha, one_minus_alpha, length);
+    err = launch_streamed(cfg, kinv, q, lb, ub, rho, rhoi, x0, z0, y0, xo, zo,
+                          yo, scratch, P, sigma, alpha, one_minus_alpha,
+                          length);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

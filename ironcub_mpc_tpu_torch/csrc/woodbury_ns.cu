@@ -4,7 +4,7 @@
 // keep every intermediate in shared memory and registers; a scenario runs on
 // one thread block or on a cluster of 8 blocks that read each other's strips
 // through distributed shared memory. The general route takes every other
-// shape up to P = 1024 (see its section below).
+// shape, any P a multiple of 128 (see its section below).
 //
 // Replaces the TPU kernel ironcub_mpc_tpu/ops/pallas_solve.py
 // `woodbury_ns` (body `_woodbury_kernel`). It computes the same function,
@@ -72,7 +72,7 @@
 //   the gathered operand [P, P] (P = 128) or [R, P] (P = 256)
 // with n8, n4 = n rounded up to 8, 4; T and the K strip only for n_ns > 0.
 //
-// The general route (any P up to 1024, any box; ops/kernels.woodbury_plan
+// The general route (any P, any box; ops/kernels.woodbury_plan
 // sends it the shapes the tuned routes do not take, such as a control
 // horizon of 13 with joint limits: P = 256, n_box 132). A simple design that
 // is right first: one block of 256 threads a scenario, the intermediates X,
@@ -84,7 +84,10 @@
 // rounding (division by the pivot, a rounded product subtracted), in shared
 // memory while it fits (n ≤ 231) and in the scratch beyond (n = 528 at
 // P = 640: 528 steps over 1.1 MB on one SM, timed in PERF.md). Bound: as
-// the tuned routes; at B = 1 only one SM works.
+// the tuned routes; at B = 1 only one SM works. No padded size is refused:
+// what caps P is device memory, the scratch's 12·P² bytes a scenario beside
+// the 12·P² of K⁻¹, H and the result (every index into a matrix is a size_t
+// product).
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -729,7 +732,6 @@ constexpr int kGenTile = 64;              // output tile edge
 constexpr int kGenDepth = 32;             // depth of a shared-memory tile
 constexpr int kGenLdA = kGenTile + 1;     // padded row of the A tile
 constexpr int kGenTileFloats = kGenDepth * kGenLdA + kGenDepth * kGenTile;
-constexpr int kMaxGeneralP = 1024;
 
 enum Epilogue { kStore = 0, kSubFromBase = 1, kTwoIMinus = 2 };
 
@@ -781,13 +783,14 @@ __device__ void general_matmul(const float* A, int lda, const float* B,
         for (int e = tid; e < kGenTile * kGenDepth; e += kThreads) {
           const int m = e / kGenDepth, k = e % kGenDepth;
           const bool in = m0 + m < M && k0 + k < K;
-          sA[k * kGenLdA + m] = in ? A[(m0 + m) * lda + k0 + k] : 0.0f;
+          sA[k * kGenLdA + m] =
+              in ? A[static_cast<size_t>(m0 + m) * lda + k0 + k] : 0.0f;
         }
         for (int e = tid; e < kGenDepth * kGenTile; e += kThreads) {
           const int k = e / kGenTile, c = e % kGenTile;
           float v = 0.0f;
           if (k0 + k < K && n0 + c < N) {
-            v = B[(k0 + k) * ldb + n0 + c];
+            v = B[static_cast<size_t>(k0 + k) * ldb + n0 + c];
             if (bscale != nullptr) v = __fmul_rn(bscale[k0 + k], v);
           }
           sB[k * kGenTile + c] = v;
@@ -815,9 +818,10 @@ __device__ void general_matmul(const float* A, int lda, const float* B,
           const int c = n0 + tc * 4 + j;
           if (r < M && c < N) {
             float v = acc[i][j];
-            if (EPI == kSubFromBase) v = base[r * ldc + c] - v;
+            const size_t rc = static_cast<size_t>(r) * ldc + c;
+            if (EPI == kSubFromBase) v = base[rc] - v;
             if (EPI == kTwoIMinus) v = (r == c ? 2.0f : 0.0f) - v;
-            C[r * ldc + c] = v;
+            C[rc] = v;
           }
         }
       }
@@ -837,13 +841,15 @@ __device__ void general_gauss_jordan(float* A, int n, float* prow,
   const int lane = tid & 31, warp = tid >> 5;
   constexpr int kWarps = kThreads / 32;
   for (int i = 0; i < n; ++i) {
-    const float piv = clamp_pivot(A[i * n + i]);
+    const float* Ai = A + static_cast<size_t>(i) * n;
+    const float piv = clamp_pivot(Ai[i]);
     for (int c = tid; c < n; c += kThreads)
-      prow[c] = (c == i ? 1.0f : A[i * n + c]) / piv;
-    for (int r = tid; r < n; r += kThreads) pcol[r] = A[r * n + i];
+      prow[c] = (c == i ? 1.0f : Ai[c]) / piv;
+    for (int r = tid; r < n; r += kThreads)
+      pcol[r] = A[static_cast<size_t>(r) * n + i];
     __syncthreads();
     for (int r = warp; r < n; r += kWarps) {
-      float* row = A + r * n;
+      float* row = A + static_cast<size_t>(r) * n;
       if (r == i) {
         for (int c = lane; c < n; c += 32) row[c] = prow[c];
       } else {
@@ -888,14 +894,16 @@ __global__ void __launch_bounds__(kThreads) woodbury_ns_general_kernel(
   // 1. M, rounded as capacitance() rounds it, then G = M⁻¹ in place
   for (int r = tid / 32; r < n; r += kThreads / 32)
     for (int c = tid % 32; c < n; c += 32)
-      gj[r * n + c] = (r == c ? 1.0f : 0.0f) +
-                      __fmul_rn(d[box0 + r], Ki[(box0 + r) * P + box0 + c]);
+      gj[static_cast<size_t>(r) * n + c] =
+          (r == c ? 1.0f : 0.0f) +
+          __fmul_rn(d[box0 + r],
+                    Ki[static_cast<size_t>(box0 + r) * P + box0 + c]);
   __syncthreads();
   general_gauss_jordan(gj, n, prow, pcol);
 
   // 2. W [n, P] into S1, X into S0
-  general_matmul<kStore>(gj, n, Ki + box0 * P, P, d + box0, S1, P, nullptr,
-                         n, P, n, sA, sB);
+  general_matmul<kStore>(gj, n, Ki + static_cast<size_t>(box0) * P, P,
+                         d + box0, S1, P, nullptr, n, P, n, sA, sB);
   general_matmul<kSubFromBase>(Ki + box0, P, S1, P, nullptr, S0, P, Ki, P, P,
                                n, sA, sB);
 
@@ -972,8 +980,7 @@ extern "C" int woodbury_ns_general_launch(
     const float* kinv, const float* h, const float* d, const float* rho,
     float* out, float* scratch, int B, int P, int box0, int n_box,
     float sigma, int n_ns, cudaStream_t stream) {
-  if (P < 1 || P > kMaxGeneralP || box0 < 0 || n_box < 1 ||
-      box0 + n_box > P || n_ns < 0)
+  if (P < 1 || box0 < 0 || n_box < 1 || box0 + n_box > P || n_ns < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = sizeof(float) * general_smem_floats(n_box);

@@ -22,8 +22,10 @@ Counterpart of ``ironcub_mpc_tpu/ops/pallas_solve.py``:
 
 All take the full, lane-padded layout of the Pallas kernels with a leading
 batch dimension B: matrices [B, P, P], vectors [B, P] (P = 128 for the
-stock nU = 120; every padded size up to 1024, on the card too). Box entries sit at ``box0:``; outside the box ρ = 0, 1/ρ =
-0 and the bounds are ±inf_bound, so no masks are needed.
+stock nU = 120; on the card the segments take any multiple of 32 and the
+refresh any multiple of 128, device memory their only cap). Box entries sit at ``box0:``;
+outside the box ρ = 0, 1/ρ = 0 and the bounds are ±inf_bound, so no masks
+are needed.
 
 A wrapper runs its plain twin only because its tensors lie on the CPU. For
 CUDA tensors it launches its kernel or raises; it never falls back. Each
@@ -124,9 +126,9 @@ def _lib(name: str):
         fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "admm_segment":
-            fn.argtypes = [p] * 12 + [i, i, f, f, f, i, p]
+            fn.argtypes = [p] * 13 + [i, i, f, f, f, i, p]
         elif name == "admm_segment_grouped":
-            fn.argtypes = [p] * 12 + [i, i, i, f, f, f, i, p]
+            fn.argtypes = [p] * 13 + [i, i, i, f, f, f, i, p]
         else:
             fn.argtypes = [p] * 5 + [i, i, i, i, f, i, i, p]
             lib.woodbury_ns_smem_bytes.restype = i
@@ -201,22 +203,51 @@ def admm_segment_plain(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
 
 
 SEGMENT_REG_THREADS = 512
+# the streamed variant keeps up to 4 coordinates a thread in registers; the
+# wide variant, beyond, keeps its scenario's x, z, y and rhs in device memory
+SEGMENT_STREAMED_MAX_COORDS = 4
+
+
+def segment_streamed_threads(P: int) -> int:
+    """Threads of a streamed block (``streamed_threads`` of
+    csrc/admm_segment.cuh): ceil(P / 1024) coordinates a thread, the fewest
+    warps that cover P."""
+    per = -(-P // MAX_THREADS)
+    cover = -(-P // per)
+    return -(-cover // 32) * 32
 
 
 def segment_plan(B: int, P: int) -> dict:
     """The launch :func:`admm_segment` makes at padded size ``P``: the
-    variant, the blocks, the threads of a block and its shared memory.
+    variant, the blocks, the threads of a block, its shared memory and the
+    device scratch of the launch in floats.
 
     One rule, by size alone, which the source's launcher applies: K⁻¹ in
     registers at P = 128 (the stock layout), else re-read through L2 every
-    iteration."""
-    if P % 32 or not 0 < P <= MAX_THREADS:
-        raise ValueError(f"admm_segment: padded size {P} must be a multiple "
-                         f"of 32 in (0, {MAX_THREADS}]")
+    iteration by a block of at most 1024 threads, ceil(P / 1024) coordinates
+    a thread: "streamed" with each coordinate's state in registers and rhs
+    in shared memory up to 4 coordinates a thread (P ≤ 4096), "wide" beyond
+    with x, z and y in the outputs and rhs in a device scratch of B·P
+    floats. Device memory is the only cap."""
+    if P % 32 or P <= 0:
+        raise ValueError(f"admm_segment: padded size {P} must be a positive "
+                         f"multiple of 32")
     if P == LANE:
         return dict(variant="registers", blocks=B,
-                    threads=SEGMENT_REG_THREADS, smem_bytes=4 * 2 * LANE)
-    return dict(variant="streamed", blocks=B, threads=P, smem_bytes=4 * P)
+                    threads=SEGMENT_REG_THREADS, smem_bytes=4 * 2 * LANE,
+                    scratch_floats=0)
+    threads = segment_streamed_threads(P)
+    if -(-P // MAX_THREADS) <= SEGMENT_STREAMED_MAX_COORDS:
+        return dict(variant="streamed", blocks=B, threads=threads,
+                    smem_bytes=4 * P, scratch_floats=0)
+    return dict(variant="wide", blocks=B, threads=threads, smem_bytes=0,
+                scratch_floats=B * P)
+
+
+def _segment_scratch(plan: dict, like: torch.Tensor):
+    """The wide variant's device scratch, or None."""
+    n = plan["scratch_floats"]
+    return torch.empty(n, dtype=like.dtype, device=like.device) if n else None
 
 
 def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
@@ -230,17 +261,18 @@ def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
                                   x_f, z_f, y_f, sigma=sigma, alpha=alpha,
                                   length=length)
     B, P = Kinv_p.shape[0], Kinv_p.shape[-1]
-    segment_plan(B, P)
+    plan = segment_plan(B, P)
     vecs = dict(q_f=q_f, lb_f=lb_f, ub_f=ub_f, rho_f=rho_f, rhoi_f=rhoi_f,
                 x_f=x_f, z_f=z_f, y_f=y_f)
     _check_segment(Kinv_p, vecs)
     xo, zo, yo = (torch.empty_like(x_f) for _ in range(3))
+    scratch = _segment_scratch(plan, x_f)
     fn = _lib("admm_segment").admm_segment_launch
     with torch.cuda.device(Kinv_p.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in (Kinv_p, q_f, lb_f, ub_f, rho_f,
                                          rhoi_f, x_f, z_f, y_f, xo, zo, yo)),
-                B, P, float(sigma), float(alpha), float(1.0 - alpha),
+                None if scratch is None else scratch.data_ptr(), B, P, float(sigma), float(alpha), float(1.0 - alpha),
                 int(length), stream)
     _raise_on(rc, "admm_segment")
     admm_segment.launches += 1
@@ -294,8 +326,8 @@ def grouped_plan(B: int, P: int, group: int) -> dict:
     ``group`` is not used: the placement follows the card. At P = 128 each
     scenario's K⁻¹ stays in the registers of one block of 512 threads for
     the whole segment, two blocks an SM, in the grouped kernel's own layout;
-    any other padded size (a multiple of 32 up to 1024) streams K⁻¹ through
-    L2, one thread a coordinate."""
+    any other padded size (a multiple of 32) streams K⁻¹ through L2 as
+    :func:`segment_plan` says."""
     _check_group(B, group)
     return segment_plan(B, P)
 
@@ -310,24 +342,25 @@ def admm_segment_grouped(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b,
     ``group`` keeps only its contract: B must be divisible by it, and every
     group gives the same result. On the card the placement is
     :func:`grouped_plan`'s, chosen by P (any padded size that is a multiple
-    of 32 up to 1024)."""
+    of 32)."""
     B, P = Kinv_b.shape[0], Kinv_b.shape[-1]
     _check_group(B, group)
     if not _dispatch("admm_segment_grouped", Kinv_b):
         return admm_segment_grouped_plain(
             Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b, y_b,
             sigma=sigma, alpha=alpha, length=length, group=group)
-    grouped_plan(B, P, group)
+    plan = grouped_plan(B, P, group)
     vecs = dict(q_b=q_b, lb_b=lb_b, ub_b=ub_b, rho_b=rho_b, rhoi_b=rhoi_b,
                 x_b=x_b, z_b=z_b, y_b=y_b)
     _check_segment(Kinv_b, vecs)
     xo, zo, yo = (torch.empty_like(x_b) for _ in range(3))
+    scratch = _segment_scratch(plan, x_b)
     fn = _lib("admm_segment_grouped").admm_segment_grouped_launch
     with torch.cuda.device(Kinv_b.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in (Kinv_b, q_b, lb_b, ub_b, rho_b,
                                          rhoi_b, x_b, z_b, y_b, xo, zo, yo)),
-                B, P, int(group), float(sigma), float(alpha),
+                None if scratch is None else scratch.data_ptr(), B, P, int(group), float(sigma), float(alpha),
                 float(1.0 - alpha), int(length), stream)
     _raise_on(rc, "admm_segment_grouped")
     admm_segment_grouped.launches += 1
@@ -387,8 +420,6 @@ WOODBURY_CLUSTERS = {128: (1, 8), 256: (8,)}
 WOODBURY_MAX_BOX = LANE
 # floats beside the matrices: pivot rows and columns [2][2][128] and d [128]
 WOODBURY_VEC_FLOATS = 5 * LANE
-# the largest padded size of the general route (segment_plan's cap)
-WOODBURY_MAX_P = 1024
 # the general route's product tiles in shared memory: A [32, 65], B [32, 64]
 WOODBURY_GENERAL_TILE_FLOATS = 32 * 65 + 32 * 64
 
@@ -453,12 +484,13 @@ def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
     At P = 256 the matrices fit only a cluster of 8. ``cluster`` forces a
     size the tuned routes are built for (the card tests time both).
 
-    Every other padded size that is a multiple of 128 up to 1024, and every
-    wider box, takes the ``general`` route: one block a scenario, its
-    intermediates in a device scratch."""
-    if P % LANE or not 0 < P <= WOODBURY_MAX_P:
-        raise ValueError(f"woodbury_ns: padded size {P} must be a multiple "
-                         f"of {LANE} up to {WOODBURY_MAX_P}")
+    Every other padded size that is a multiple of 128, and every wider box,
+    takes the ``general`` route: one block a scenario, its intermediates in
+    a device scratch. No padded size is refused for its size: device memory
+    caps it (the scratch is 12·P² bytes a scenario)."""
+    if P % LANE or P <= 0:
+        raise ValueError(f"woodbury_ns: padded size {P} must be a positive "
+                         f"multiple of {LANE}")
     if P not in WOODBURY_CLUSTERS or n_box > WOODBURY_MAX_BOX:
         if cluster is not None:
             raise ValueError(f"woodbury_ns: cluster size {cluster} forced at "
@@ -492,8 +524,8 @@ def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
     ``Kinv_p`` and ``H_p`` are [B, P, P]; ``d_f`` = ρ_new − ρ_old and
     ``rho_f`` = ρ_new are [B, P] in the full layout (zero outside the box
     entries [box0, box0 + n_box)). Returns the symmetrised [B, P, P]. On the
-    card P is a multiple of 128 up to 1024 with any box (``woodbury_plan``
-    picks the route); a larger P raises. ``cluster`` overrides the cluster
+    card P is any multiple of 128 with any box (``woodbury_plan`` picks the
+    route). ``cluster`` overrides the cluster
     size the plan would choose where a tuned route runs (card only)."""
     P = Kinv_p.shape[-1]
     if box0 < 0 or n_box < 1 or box0 + n_box > P:

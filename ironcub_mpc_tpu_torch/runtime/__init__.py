@@ -1,2 +1,2 @@
-"""Recorded-flight replay, trajectories, the closed loop and the flight
-runner."""
+"""Recorded-flight replay, trajectories, the closed loop, the flight runner
+and checkpoint / resume of its state."""

@@ -113,6 +113,20 @@ class Plant:
         # sensor noise: one generator per plant, seeded by init_state
         self._noise_gen = torch.Generator(device=kd.device)
 
+    def seed_noise(self, seed: int):
+        """Seed the sensor-noise generator (``init_state`` does)."""
+        self._noise_gen.manual_seed(int(seed))
+
+    def noise_state(self) -> torch.Tensor:
+        """The sensor-noise generator's state: the JAX plant carries its
+        noise key in the state, this plant keeps the generator, so a
+        checkpoint or a retry that must see the same draws saves this."""
+        return self._noise_gen.get_state()
+
+    def set_noise_state(self, state: torch.Tensor):
+        """Put the sensor-noise generator back to a :meth:`noise_state`."""
+        self._noise_gen.set_state(state)
+
     # ------------------------------------------------------------------
 
     def init_state(self, base_R, base_p, q, seed: int = 0,
@@ -121,7 +135,7 @@ class Plant:
         ``seed`` seeds the plant's sensor-noise generator."""
         kd = self.kd
         opts = dict(dtype=kd.dtype, device=kd.device)
-        self._noise_gen.manual_seed(int(seed))
+        self.seed_noise(seed)
 
         def lanes(a):
             t = torch.as_tensor(np.asarray(a), **opts)

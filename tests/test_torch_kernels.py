@@ -172,20 +172,37 @@ def _cuda_constants(source):
 
 @pytest.mark.parametrize("batch", [1, 64, 256])
 @pytest.mark.parametrize("p,variant", [(128, "registers"),
-                                       (256, "streamed")])
+                                       (256, "streamed"),
+                                       (1152, "streamed"), (4224, "wide")])
 def test_segment_plan_fits_the_card(p, variant, batch):
     plan = kernels.segment_plan(batch, p)
     assert plan["variant"] == variant
     assert plan["blocks"] == batch
     assert 0 < plan["threads"] <= kernels.MAX_THREADS
     assert plan["threads"] % 32 == 0
-    assert 0 < plan["smem_bytes"] <= kernels.MAX_SMEM
+    # the wide variant keeps nothing in shared memory: its state lies in
+    # the outputs and its rhs in a device scratch of B·P floats
+    wide = variant == "wide"
+    assert (plan["smem_bytes"] == 0) == wide
+    assert plan["smem_bytes"] <= kernels.MAX_SMEM
+    assert plan["scratch_floats"] == (batch * p if wide else 0)
 
 
 def test_segment_plan_refuses_what_the_kernel_does_not_take():
-    assert kernels.segment_plan(4, 192)["variant"] == "streamed"
-    assert kernels.segment_plan(4, 1024)["variant"] == "streamed"
-    for p in (0, 100, 130, 2048):
+    """Above P = 1024 a thread takes ceil(P / 1024) coordinates (P = 1152
+    and 2048 were refused before); above 4096 the wide variant keeps its
+    state in device memory, so no size is refused for the card's shared
+    memory (P = 14,560 was, while the wide variant kept it there). What is
+    refused is a size that is no positive multiple of 32."""
+    for p, threads in ((192, 192), (1024, 1024), (1056, 544), (1152, 576),
+                       (2048, 1024), (3104, 800), (4096, 1024), (4128, 832),
+                       (14560, 992), (65536, 1024)):
+        plan = kernels.segment_plan(4, p)
+        assert plan["variant"] == ("streamed" if p <= 4096 else "wide")
+        assert plan["threads"] == threads <= kernels.MAX_THREADS
+        per = -(-p // kernels.MAX_THREADS)
+        assert (threads - 32) * per < p <= threads * per
+    for p in (0, -32, 100, 130):
         with pytest.raises(ValueError, match="multiple of 32"):
             kernels.segment_plan(1, p)
 
@@ -199,11 +216,28 @@ def test_segment_plan_matches_the_cuda_source():
     # static shared memory of the register variant: rhs, double-buffered
     assert "__shared__ float4 s_rhs[2][kRegP / 4];" in text
     assert plan["smem_bytes"] == 2 * c["kRegP"] * 4
-    # the launcher picks the variant by the same rule as the plan, and the
-    # streamed variant runs one thread per coordinate on [P] floats of rhs
+    # the launcher picks the variant by the same rule as the plan; the
+    # streamed variants (the shared header) take ceil(P / 1024) coordinates
+    # a thread, in registers up to 4 (rhs alone in shared memory), beyond
+    # that with x, z and y in the outputs and rhs in the caller's scratch
     assert "if (P == kRegP) {" in text
-    assert "cfg.blockDim = dim3(P);" in text
-    assert "cfg.dynamicSmemBytes = sizeof(float) * P;" in text
+    assert "err = launch_streamed(cfg, kinv," in text
+    head, h = _cuda_constants("admm_segment.cuh")
+    assert h["kStreamedMaxCoords"] == kernels.SEGMENT_STREAMED_MAX_COORDS
+    assert "kMaxSegmentSmem" not in h and "kWideVectors" not in h
+    assert "cfg.blockDim = dim3(streamed_threads(P));" in head
+    assert "cfg.dynamicSmemBytes = streamed_smem_bytes(P);" in head
+    assert "const int per = (P + 1023) / 1024;" in head
+    assert "return ((P + per - 1) / per + 31) / 32 * 32;" in head
+    assert "return (P + 1023) / 1024 > kStreamedMaxCoords;" in head
+    assert ("return streamed_wide(P) ? 0 : sizeof(float) * "
+            "static_cast<size_t>(P);") in head
+    assert ("return streamed_wide(P) ? static_cast<size_t>(P) : 0;"
+            in head)
+    assert "if (scratch == nullptr) return cudaErrorInvalidValue;" in head
+    for c in range(1, kernels.SEGMENT_STREAMED_MAX_COORDS + 1):
+        assert f"admm_segment_streamed_kernel<{c}>," in head
+    assert "admm_segment_wide_kernel," in head
 
 
 @pytest.mark.parametrize("n_ns", [0, 1])
@@ -236,9 +270,12 @@ def test_woodbury_plan_fits_the_card(p, n_box, batch, n_ns):
 
 
 def test_woodbury_plan_refuses_what_the_kernel_does_not_take():
-    for p in (64, 192, 1152, 2048):
-        with pytest.raises(ValueError, match="multiple of 128 up to 1024"):
+    for p in (0, 64, 192, 1160):
+        with pytest.raises(ValueError, match="positive multiple of 128"):
             kernels.woodbury_plan(1, p, 24, 1)
+    # above 1024 (refused before) the general route takes any multiple of 128
+    for p in (1152, 2048):
+        assert kernels.woodbury_plan(1, p, 24, 1)["route"] == "general"
     for p, c in ((128, 0), (128, 2), (128, 4), (128, 16), (256, 1)):
         with pytest.raises(ValueError, match="cluster size"):
             kernels.woodbury_plan(1, p, 24, 1, c)
@@ -263,10 +300,10 @@ def test_woodbury_plan_refuses_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("batch", [1, 16, 64])
 @pytest.mark.parametrize("p,n_box", [(256, 129), (256, 132), (256, 231), (256, 232),
                                      (384, 80), (640, 8), (640, 528),
-                                     (1024, 1024)])
+                                     (1024, 1024), (1152, 8), (1152, 132)])
 def test_woodbury_plan_general_route(p, n_box, batch):
     """One block a scenario with a device scratch, every shape the tuned
-    routes do not take up to P = 1024: the shared memory fits a block, the
+    routes do not take, P = 1152 too: the shared memory fits a block, the
     Gauss–Jordan matrix moves to the scratch above n_box 231."""
     plan = kernels.woodbury_plan(batch, p, n_box, 1)
     assert plan["route"] == "general" and plan["cluster"] == 1
@@ -285,7 +322,8 @@ def test_woodbury_general_layout_matches_the_cuda_source():
     B [32, 64], the pivot row and column, the Gauss–Jordan matrix while it
     fits."""
     text, c = _cuda_constants("woodbury_ns.cu")
-    assert c["kMaxGeneralP"] == kernels.WOODBURY_MAX_P
+    # the launcher refuses no padded size for its size (it refused P > 1024)
+    assert "if (P < 1 || box0 < 0 || n_box < 1 || box0 + n_box > P" in text
     assert c["kGenLdA"] == c["kGenTile"] + 1
     assert c["kGenTileFloats"] == kernels.WOODBURY_GENERAL_TILE_FLOATS == \
         c["kGenDepth"] * c["kGenLdA"] + c["kGenDepth"] * c["kGenTile"]
@@ -298,7 +336,7 @@ def test_woodbury_general_layout_matches_the_cuda_source():
             c["kGenTileFloats"] + vec + (n * n if fits else 0))
 
 
-@pytest.mark.parametrize("p", [128, 256, 384])
+@pytest.mark.parametrize("p", [128, 256, 384, 1152])
 @pytest.mark.parametrize("batch,group", [(1, 1), (256, 8), (265, 5),
                                          (512, 16), (1056, 8)])
 def test_grouped_plan_fits_the_card(p, batch, group):
@@ -314,7 +352,12 @@ def test_grouped_plan_fits_the_card(p, batch, group):
 
 
 def test_grouped_plan_refuses_what_the_kernel_does_not_take():
-    for p in (0, 100, 1056):
+    # P = 1056 was refused before, and P = 14,560 while the wide variant
+    # kept its state in shared memory; now only a size that is no positive
+    # multiple of 32
+    assert kernels.grouped_plan(8, 1056, 1)["variant"] == "streamed"
+    assert kernels.grouped_plan(8, 14560, 1)["scratch_floats"] == 8 * 14560
+    for p in (0, 100):
         with pytest.raises(ValueError, match="multiple of 32"):
             kernels.grouped_plan(8, p, 1)
     with pytest.raises(ValueError, match="batch 32 not divisible by group 5"):
@@ -330,14 +373,13 @@ def test_grouped_plan_matches_the_cuda_source():
     text, c = _cuda_constants("admm_segment_grouped.cu")
     assert c["kRegP"] == kernels.LANE
     assert c["kThreads"] == kernels.SEGMENT_REG_THREADS
-    assert c["kMaxP"] == kernels.MAX_THREADS
+    assert "kMaxP" not in c
     assert "__shared__ float4 s_rhs[2][kRegP / 4];" in text
     plan = kernels.grouped_plan(1, kernels.LANE, 1)
     assert plan["smem_bytes"] == 2 * c["kRegP"] * 4
     assert "if (P == kRegP) {" in text
     assert "cfg.blockDim = dim3(kThreads);" in text
-    assert "cfg.blockDim = dim3(P);" in text
-    assert "cfg.dynamicSmemBytes = sizeof(float) * P;" in text
+    assert "err = launch_streamed(cfg, kinv," in text
 
 
 def _layout_bytes(c, P, n, n_ns, cluster):

@@ -11,7 +11,10 @@ as the real library and compared with the plain PyTorch twins: both variants
 of the segment, every route of the grouped segment, every padded size and
 cluster size of the refresh's tuned routes and its general route (P = 256
 with a box of 132, P = 384, P = 640, the elimination in shared and in device
-memory), every Gauss–Jordan elimination, ragged boxes and the pivot clamp.
+memory), every Gauss–Jordan elimination, ragged boxes and the pivot clamp,
+and P = 1152, above the 1024 threads of a block (the segments' streamed
+route with two coordinates a thread, the general route with n_ns = 0; its
+Newton–Schulz products at that size are left to the card).
 What the stand-in cannot see (timing, bank conflicts, a race between two
 barriers) stays with the card. Skips where there is no ``g++`` with C++20's
 ``<barrier>``.
@@ -30,7 +33,7 @@ from ironcub_mpc_tpu_torch.ops import kernels
 
 from test_torch_kernels_gpu import (ALPHA, BOX02, NU2, P, P2, SIGMA,
                                      _clamp_inputs, _segment_inputs,
-                                     _woodbury_inputs)
+                                     _wide_inputs, _woodbury_inputs)
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 # the one declaration of the sources that has no meaning on the CPU: the
@@ -75,7 +78,7 @@ def emulated(tmp_path_factory):
         libs[name] = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs["admm_segment"].admm_segment_launch.argtypes = (
-        [p] * 12 + [i, i, f, f, f, i, p])
+        [p] * 13 + [i, i, f, f, f, i, p])
     libs["woodbury_ns"].woodbury_ns_launch.argtypes = (
         [p] * 5 + [i, i, i, i, f, i, i, p])
     libs["woodbury_ns"].woodbury_ns_smem_bytes.argtypes = [i, i, i, i]
@@ -86,25 +89,50 @@ def emulated(tmp_path_factory):
     libs["woodbury_ns"].woodbury_ns_general_scratch_floats.restype = \
         ctypes.c_long
     libs["admm_segment_grouped"].admm_segment_grouped_launch.argtypes = (
-        [p] * 12 + [i, i, i, f, f, f, i, p])
+        [p] * 13 + [i, i, i, f, f, f, i, p])
     return libs
+
+
+def _scratch(ins):
+    """The wide variant's scratch, NaN-filled so that a read of an entry
+    never written shows; None at the sizes that take none (and at sizes
+    the plan refuses, which the launcher must refuse too)."""
+    B, p = ins[0].shape[0], ins[0].shape[-1]
+    n = kernels.segment_plan(B, p)["scratch_floats"] if p % 32 == 0 else 0
+    return torch.full((n,), float("nan")) if n else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _segment(lib, ins, length):
     outs = [torch.full_like(ins[6], float("nan")) for _ in range(3)]
     B, p = ins[0].shape[0], ins[0].shape[-1]
+    scratch = _scratch(ins)
     rc = lib.admm_segment_launch(
-        *(t.data_ptr() for t in ins + outs), B, p, SIGMA, ALPHA, 1.0 - ALPHA,
-        length, None)
+        *(t.data_ptr() for t in ins + outs), _ptr(scratch), B, p, SIGMA,
+        ALPHA, 1.0 - ALPHA, length, None)
+    return rc, outs
+
+
+def _segment_sized(lib, ins, length, p):
+    """A launch that claims padded size ``p`` whatever the tensors hold,
+    with no scratch."""
+    outs = [torch.zeros_like(ins[6]) for _ in range(3)]
+    rc = lib.admm_segment_launch(
+        *(t.data_ptr() for t in ins + outs), None, 1, p, SIGMA, ALPHA,
+        1.0 - ALPHA, length, None)
     return rc, outs
 
 
 def _grouped(lib, ins, length, group):
     outs = [torch.full_like(ins[6], float("nan")) for _ in range(3)]
     B, p = ins[0].shape[0], ins[0].shape[-1]
+    scratch = _scratch(ins)
     rc = lib.admm_segment_grouped_launch(
-        *(t.data_ptr() for t in ins + outs), B, p, group, SIGMA, ALPHA,
-        1.0 - ALPHA, length, None)
+        *(t.data_ptr() for t in ins + outs), _ptr(scratch), B, p, group,
+        SIGMA, ALPHA, 1.0 - ALPHA, length, None)
     return rc, outs
 
 
@@ -131,8 +159,35 @@ def _woodbury(lib, ins, box0, n_box, n_ns, cluster):
     return out
 
 
-@pytest.mark.parametrize("p,nu,box0", [(P, 120, 96), (P2, NU2, BOX02)],
-                         ids=["registers", "streamed"])
+# P = 1152 with a box of 8 and of 132: two coordinates a thread
+P_BIG = 1152
+BIG_BOXES = [(P_BIG - 12, P_BIG - 20), (P_BIG - 12, P_BIG - 144)]
+# the segments' wide variant: five coordinates a thread, state in device
+# memory; two scenarios, so that each reads and writes its own part of the
+# scratch and the outputs
+P_WIDE = 4224
+
+
+@pytest.mark.parametrize("name", ["admm_segment", "admm_segment_grouped"])
+def test_segment_sources_wide_variant_matches_twin(emulated, name):
+    ins = [torch.as_tensor(v).contiguous() for v in
+           _wide_inputs(18, 2, P_WIDE).values()]
+    assert kernels.segment_plan(1, P_WIDE)["variant"] == "wide"
+    ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=2)
+    if name == "admm_segment":
+        rc, got = _segment(emulated[name], ins, 2)
+    else:
+        rc, got = _grouped(emulated[name], ins, 2, 1)
+    assert rc == 0
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("p,nu,box0", [(P, 120, 96), (P2, NU2, BOX02),
+                                       (P_BIG, *BIG_BOXES[0]),
+                                       (P_BIG, *BIG_BOXES[1])],
+                         ids=["registers", "streamed", "streamed-1152-box8",
+                              "streamed-1152-box132"])
 def test_admm_segment_source_matches_twin(emulated, p, nu, box0):
     ins = [torch.as_tensor(v).contiguous() for v in
            _segment_inputs(1, 2, nu=nu, box0=box0, p=p).values()]
@@ -156,9 +211,14 @@ def test_admm_segment_source_keeps_nan_and_refuses_bad_shapes(emulated):
                                       np.isnan(r.numpy()))
         np.testing.assert_allclose(g.numpy()[0], r.numpy()[0], rtol=0,
                                    atol=1e-5)
-    # a padded size that is no multiple of 32 is refused
+    # a padded size that is no multiple of 32 is refused, and a wide one
+    # given no scratch (the launcher refuses before it reads anything, so
+    # small tensors stand in); no size is refused for the shared memory
+    # (P = 14,560 was, while the wide variant kept its state there)
     odd = [torch.zeros(1, 100, 100)] + [torch.zeros(1, 100)] * 8
     assert _segment(lib, odd, 1)[0] != 0
+    rc, _ = _segment_sized(lib, odd, 1, P_WIDE)
+    assert rc != 0
 
 
 @pytest.mark.parametrize("n_ns", [0, 2])
@@ -212,8 +272,9 @@ def test_woodbury_ns_source_pivot_clamp(emulated, box0):
 
 def test_woodbury_source_refuses_what_it_is_not_built_for(emulated):
     """The tuned routes' launcher refuses what it is not built for; P = 384
-    and a box of 240 at P = 256 now agree with the twin on the general
-    route, which refuses only P above 1024 and an invalid box."""
+    and a box of 240 at P = 256 agree with the twin on the general route,
+    which refuses only an invalid box (it refused P above 1024 too: P = 1152
+    now agrees with the twin)."""
     lib = emulated["woodbury_ns"]
     for p, n_box, cluster in ((P, 24, 2), (P2, 48, 1), (384, 24, 8),
                               (P2, 240, 8)):
@@ -222,7 +283,7 @@ def test_woodbury_source_refuses_what_it_is_not_built_for(emulated):
             *(t.data_ptr() for t in (m, m, v, v, torch.empty_like(m))), 1, p,
             0, n_box, SIGMA, 1, cluster, None)
         assert rc != 0, (p, n_box, cluster)
-    for p, nu, box0 in ((384, 280, 256), (P2, NU2, 0)):
+    for p, nu, box0 in ((384, 280, 256), (P2, NU2, 0), (P_BIG, P_BIG, 1128)):
         _, _, ins = _woodbury_inputs(13, 1, nu, box0, p=p)
         ins = [torch.as_tensor(v).contiguous() for v in ins.values()]
         kw = dict(box0=box0, n_box=nu - box0, n_ns=0)
@@ -230,7 +291,7 @@ def test_woodbury_source_refuses_what_it_is_not_built_for(emulated):
         got = _general(lib, ins, **kw)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                    atol=2e-6)
-    for p, box0, n_box in ((1152, 0, 24), (P, 120, 24), (P, 0, 0)):
+    for p, box0, n_box in ((P, 120, 24), (P, 0, 0), (P_BIG, 1140, 24)):
         m, v = torch.zeros(1, p, p), torch.zeros(1, p)
         rc = lib.woodbury_ns_general_launch(
             *(t.data_ptr() for t in (m, m, v, v, torch.empty_like(m), m)), 1,
@@ -238,17 +299,20 @@ def test_woodbury_source_refuses_what_it_is_not_built_for(emulated):
         assert rc != 0, (p, box0, n_box)
 
 
-@pytest.mark.parametrize("p,nu,box0,n_ns",
-                         [(384, 288, 208, 1), (640, 528, 520, 0),
-                          (384, 384, 84, 0), (P2, 132, 0, 2)],
+@pytest.mark.parametrize("p,nu,box0,n_ns,batch",
+                         [(384, 288, 208, 1, 2), (640, 528, 520, 0, 2),
+                          (384, 384, 84, 0, 2), (P2, 132, 0, 2, 2),
+                          (P_BIG, *BIG_BOXES[0], 0, 1),
+                          (P_BIG, *BIG_BOXES[1], 0, 1)],
                          ids=["p384-box80", "p640-box8", "gj-in-scratch",
-                              "p256-box132"])
+                              "p256-box132", "p1152-box8", "p1152-box132"])
 def test_woodbury_ns_general_source_matches_twin(emulated, p, nu, box0,
-                                                 n_ns):
+                                                 n_ns, batch):
     """The general route: P = 384 and P = 640, the elimination in the device
     scratch (n_box 300 > 231), and the long horizon's box of 132 at
-    P = 256 with two Newton–Schulz steps, at B = 2."""
-    _, _, ins = _woodbury_inputs(14, 2, nu, box0, p=p)
+    P = 256 with two Newton–Schulz steps, at B = 2; P = 1152 (refused
+    before) with a box of 8 and of 132 at B = 1."""
+    _, _, ins = _woodbury_inputs(14, batch, nu, box0, p=p)
     ins = [torch.as_tensor(v).contiguous() for v in ins.values()]
     kw = dict(box0=box0, n_box=nu - box0, n_ns=n_ns)
     ref = kernels.woodbury_ns_plain(*ins, sigma=SIGMA, **kw)
@@ -270,13 +334,18 @@ def test_woodbury_ns_general_source_pivot_clamp(emulated):
     assert float(rel.max()) < 1e-5
 
 
-@pytest.mark.parametrize("batch,p", [(3, P), (5, P), (2, P2), (2, 384)],
+@pytest.mark.parametrize("batch,p,nu,box0",
+                         [(3, P, 120, 96), (5, P, 120, 96),
+                          (2, P2, P2 - 16, P2 - 64), (2, 384, 368, 320),
+                          (1, P_BIG, *BIG_BOXES[0]),
+                          (1, P_BIG, *BIG_BOXES[1])],
                          ids=["registers", "registers-odd", "streamed",
-                              "streamed-384"])
-def test_admm_segment_grouped_source_matches_twin(emulated, batch, p):
+                              "streamed-384", "streamed-1152-box8",
+                              "streamed-1152-box132"])
+def test_admm_segment_grouped_source_matches_twin(emulated, batch, p, nu,
+                                                  box0):
     """Both variants of the grouped segment, every group giving the same
     result."""
-    nu, box0 = (120, 96) if p == P else (p - 16, p - 64)
     ins = [torch.as_tensor(v).contiguous() for v in
            _segment_inputs(15, batch, nu=nu, box0=box0, p=p).values()]
     ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=4)
@@ -306,18 +375,18 @@ def test_admm_segment_grouped_source_keeps_nan_and_refuses_bad_shapes(
         np.testing.assert_allclose(g.numpy()[:3], r.numpy()[:3], rtol=0,
                                    atol=1e-5)
     # a group that does not divide B, a padded size that is no multiple of
-    # 32 or above 1024
-    for batch, p, group in ((32, P, 5), (1, 100, 1), (1, 1056, 1)):
+    # 32 (P = 1056, refused before, is taken: the P = 1152 cases above)
+    for batch, p, group in ((32, P, 5), (1, 100, 1)):
         bad = [torch.zeros(batch, p, p)] + [torch.zeros(batch, p)] * 8
         assert _grouped(lib, bad, 1, group)[0] != 0
 
 
 def test_woodbury_layout_of_the_source_matches_the_plan(emulated):
     lib = emulated["woodbury_ns"]
-    for n_box in range(1, kernels.WOODBURY_MAX_P + 1):
+    for n_box in range(1, P_BIG + 1):
         assert lib.woodbury_ns_general_smem_bytes(n_box) == \
             kernels.woodbury_general_smem_bytes(n_box)
-        for p in (n_box, kernels.WOODBURY_MAX_P):
+        for p in (n_box, P_BIG):
             assert lib.woodbury_ns_general_scratch_floats(p, n_box) == \
                 kernels.woodbury_general_scratch_floats(p, n_box)
     fn = lib.woodbury_ns_smem_bytes

@@ -78,6 +78,26 @@ def _woodbury_inputs(seed, batch, nu, box0, p=P):
         rho_f=_full(rho_new, nu, box0, p=p))
 
 
+def _wide_inputs(seed, batch, p, n_box=64):
+    """Segment inputs at a padded size too large for an inverse to be made
+    cheaply: K⁻¹ stands in as ½I plus a small random matrix (a contraction,
+    so the iterates stay bounded), the box on the last ``n_box``
+    coordinates."""
+    rng = np.random.default_rng(seed)
+    K = (0.5 * np.eye(p) + 0.2 * rng.normal(size=(batch, p, p)) / np.sqrt(p)
+         ).astype(np.float32)
+    box0 = p - n_box
+    rho = (np.abs(rng.normal(size=(batch, n_box))) + 0.1).astype(np.float32)
+    vec = lambda: rng.normal(size=(batch, p)).astype(np.float32)  # noqa
+    return dict(
+        Kinv_p=K, q_f=vec(),
+        lb_f=_full(-np.abs(vec()[:, :n_box]), p, box0, -BIG, p),
+        ub_f=_full(np.abs(vec()[:, :n_box]), p, box0, BIG, p),
+        rho_f=_full(rho, p, box0, p=p), rhoi_f=_full(1.0 / rho, p, box0, p=p),
+        x_f=vec(), z_f=_full(vec()[:, :n_box], p, box0, p=p),
+        y_f=_full(vec()[:, :n_box], p, box0, p=p))
+
+
 # (nu, box0): the stock condensed layout (24 throttle knots at 96) and the
 # joint-limits layout (the box covers all 120 inputs)
 SHAPES = [(120, 96), (120, 0)]
@@ -182,6 +202,38 @@ def test_admm_segment_grouped_routes_cuda_match_twin(cuda, batch, p,
     for a, b, r in zip(*got, ref):
         assert torch.equal(a, b)
         np.testing.assert_allclose(a.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,box0", [(1152, 1132), (1152, 1008), (4224, None)],
+                         ids=["p1152-box8", "p1152-box132", "p4224-wide"])
+def test_segments_cuda_match_twin_above_1024(cuda, p, box0):
+    """P = 1152 (refused before as above 1024): both segment kernels
+    stream K⁻¹ with two coordinates a thread and agree with the twin; so
+    does the wide variant at P = 4224 (five coordinates a thread, their
+    state in device memory; two scenarios, each with its own part of the
+    scratch)."""
+    plan = kernels.segment_plan(1, p)
+    assert (plan["variant"], plan["threads"]) == (
+        ("streamed", 576) if p == 1152 else ("wide", 864))
+    raw = (_segment_inputs(17, 1, nu=1140, box0=box0, p=p) if box0
+           else _wide_inputs(17, 2, p))
+    ins = {k: torch.as_tensor(v) for k, v in raw.items()}
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=5)
+    ref = kernels.admm_segment_plain(*ins.values(), **kw)
+    on_card = [v.to(cuda) for v in ins.values()]
+    before = (kernels.admm_segment.launches,
+              kernels.admm_segment_grouped.launches)
+    got = kernels.admm_segment(*on_card, **kw)
+    grouped = kernels.admm_segment_grouped(*on_card, group=1, **kw)
+    torch.cuda.synchronize()
+    assert (kernels.admm_segment.launches,
+            kernels.admm_segment_grouped.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for g, s, r in zip(got, grouped, ref):
+        assert torch.equal(g, s)
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
                                    atol=1e-4)
 
 
@@ -352,9 +404,10 @@ def test_woodbury_ns_cuda_twice_the_stock_horizon(cuda, nu, box0, n_ns,
 @pytest.mark.gpu
 def test_woodbury_ns_cuda_refuses_what_does_not_fit(cuda):
     """P = 384 and a box of 240 at P = 256 (refused before the general
-    route) now agree with the twin; a padded size above 1024 still raises,
-    and nothing falls back to the twin."""
-    for p, nu, box0 in ((384, 288, 264), (P2, NU2, 0)):
+    route) agree with the twin, and so does P = 1152 (refused before as
+    above 1024); a padded size that is no multiple of 128 still raises, and
+    nothing falls back to the twin."""
+    for p, nu, box0 in ((384, 288, 264), (P2, NU2, 0), (1152, 1140, 1116)):
         _, _, ins = _woodbury_inputs(11, 2, nu, box0, p=p)
         ins = {k: torch.as_tensor(v) for k, v in ins.items()}
         kw = dict(box0=box0, n_box=nu - box0, sigma=SIGMA, n_ns=1)
@@ -365,16 +418,18 @@ def test_woodbury_ns_cuda_refuses_what_does_not_fit(cuda):
         np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
                                    atol=1e-5)
     before = kernels.woodbury_ns.launches
-    m = torch.zeros(1, 1152, 1152, device=cuda)
-    v = torch.zeros(1, 1152, device=cuda)
-    with pytest.raises(ValueError, match="up to 1024"):
+    m = torch.zeros(1, 1088, 1088, device=cuda)
+    v = torch.zeros(1, 1088, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
         kernels.woodbury_ns(m, m, v, v, box0=0, n_box=24, sigma=SIGMA, n_ns=1)
     assert kernels.woodbury_ns.launches == before
 
 
-# (P, nU, box0, batch, n_ns): the general route at chip_smoke.py's shapes
+# (P, nU, box0, batch, n_ns): the general route at chip_smoke.py's shapes,
+# P = 1152 (refused before as above 1024) with a box of 8 and of 132
 GENERAL_SHAPES = [(P2, 132, 0, 1, 0), (P2, 132, 0, 64, 1), (384, 288, 208, 1, 1),
-                  (640, 528, 520, 16, 1), (640, 528, 0, 1, 0)]
+                  (640, 528, 520, 16, 1), (640, 528, 0, 1, 0)] + [
+    (1152, 1140, box0, 1, n_ns) for box0 in (1132, 1008) for n_ns in (0, 1)]
 
 
 @pytest.mark.gpu

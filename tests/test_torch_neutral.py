@@ -100,8 +100,9 @@ def test_port_never_imports_jax():
     for m in ("ops.kernels", "dynamics.kinodynamics", "dynamics.wrenches",
               "dynamics.model", "dynamics.urdf", "dynamics.urdf_export",
               "dynamics.ironcub_model", "runtime.trajectory", "runtime.loop",
-              "runtime.flight", "sim.jet_lstm", "sim.ekf", "sim.plant",
-              "convert"):
+              "runtime.flight", "runtime.checkpoint", "sim.jet_lstm",
+              "sim.ekf", "sim.plant", "convert", "parallel", "parallel.mesh",
+              "parallel.monte_carlo"):
         assert f"ironcub_mpc_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib, runpy\n"
@@ -110,8 +111,9 @@ def test_port_never_imports_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
-        "runpy.run_path('tools/bench_segment_kernels_torch.py', "
-        "run_name='not_main')\n"
+        "for tool in ('bench_segment_kernels_torch', "
+        "'run_robustness_sweep_torch', 'run_mismatch_sweep_torch'):\n"
+        "    runpy.run_path(f'tools/{tool}.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ironcub_mpc_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

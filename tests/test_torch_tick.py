@@ -222,6 +222,54 @@ def test_solve_matches_jax(flight, first_qp, mode):
                                np.asarray(jsol.rho_scalar), rtol=1e-2)
 
 
+# the sweep's recovery retry (parallel.monte_carlo.recovery_settings): a
+# fresh factorisation, three adaptive-ρ marks, no early exit, here without
+# the polish, as in tests/test_torch_sweep.py's crippled recovery case
+RECOVERY = dict(kinv_reset=True, rho_update_iters=(25, 75, 150),
+                term_check_every=0, polish=False, kinv_guard=True)
+
+
+def test_solve_at_recovery_settings_matches_jax(flight, first_qp):
+    """The retry's 200 iterations reach the pure-JAX solution on both
+    layouts. On the way the adaptive ρ parts every pair of paths: its ratio
+    at the first mark divides a primal residual at float32 rounding, so
+    paths that sum in other orders take other ρ. After 40 iterations JAX's
+    own Pallas and pure paths stand further apart than the port's from the
+    pure path (printed: status, residuals, |Δu| against the pure path;
+    on the CPU, Pallas in interpret mode closed SOLVED_INACCURATE at a
+    primal residual of 1.6e-3 and the pure path SOLVED at 1.2e-6)."""
+    jr, tr, problem, _ = flight
+    c1, _, qp, _ = first_qp
+    kw = dict(warm_u=c1.warm_x, warm_y=c1.warm_y, kinv_prev=c1.kinv,
+              rho_prev=c1.rho_vec, rho_scalar_prev=c1.rho_scalar)
+    sc = tcond.CondensedScaling(_t(problem.cond_scaling.D, False),
+                                _t(problem.cond_scaling.c, False))
+    for n in (40, 200):
+        sols = {}
+        for mode in ("off", "on"):
+            js = jadmm.ADMMSettings(max_iter=n, pallas_mode=mode, **RECOVERY)
+            sol = jax.jit(lambda qp, sc, kw: jcond.solve(
+                jr.cfg, qp, js, scaling=sc, **kw))(qp, problem.cond_scaling,
+                                                   kw)
+            sols[f"jax-{mode}"] = (int(sol.status), float(sol.pri_res),
+                                   float(sol.dua_res), np.asarray(sol.u))
+            ts = tadmm.ADMMSettings(max_iter=n, kernel_mode=mode, **RECOVERY)
+            sol = tcond.solve(tr.cfg, _port_qp(qp), ts, scaling=sc,
+                              **{k: _t(v) for k, v in kw.items()})
+            sols[f"port-{mode}"] = (int(sol.status[0]), float(sol.pri_res[0]),
+                                    float(sol.dua_res[0]), sol.u[0].numpy())
+        ref = sols["jax-off"][3]
+        print(f"\n{n} iterations: " + "; ".join(
+            f"{k} status {st} pri {p:.3e} dua {d:.3e} |du| "
+            f"{np.abs(u - ref).max():.2e}"
+            for k, (st, p, d, u) in sols.items()))
+        for k, (st, p, d, u) in sols.items():
+            assert np.isfinite(u).all() and np.isfinite([p, d]).all(), k
+    for k in ("port-off", "port-on", "jax-on"):
+        assert sols[k][0] == sols["jax-off"][0] == jadmm.SOLVED, k
+        _close(sols[k][3], ref, 1e-5, f"u, {k}")
+
+
 # ---------------------------------------------------------------------------
 # configure
 # ---------------------------------------------------------------------------
