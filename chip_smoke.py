@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the multi-rate MPC on one CUDA card: the
-condensed tick on the recorded stream, the segment head-to-head and the
-closed-loop flight.
+condensed tick on the recorded stream, the segment head-to-head, the
+full-space solver with debug-log mode and the condense modes, the
+closed-loop flight and the Monte-Carlo sweep.
 
     python3 chip_smoke.py
 
@@ -47,6 +48,20 @@ Phases (any failure exits non-zero):
              woodbury_ns's general route; 10 ticks at batch 1 and 10 at
              batch 64, every lane solved, the first 5 against the port's
              CPU run.
+5b. full_space  the recorded stream under MPCConfig(qp_solver="full")
+             (588 variables, 512 rows, the default solver settings: 250
+             iterations, ρ marks 25 / 75 / 150, polish): 20 ticks at batch
+             1, one of them under set_sync_debug_mode("error"), and 10 at
+             batch 64 with phase 4's jitter, every lane solved, no
+             hand-written kernel launched, the first 5 ticks against the
+             port's CPU run (batch 64 on its first 8 lanes), a profiled
+             window (device ms, device kernels and torch.linalg calls a
+             tick); debug-log mode under both solvers, 5 ticks at batch 1
+             and 64 (finite, Ax within the bounds, the total the sum of the
+             blocks, the solvers' block costs within 1e-2, against the CPU);
+             the four condense modes at batch 256 on the first recorded
+             tick against the sequential chain, each timed at batch 1 and
+             256. Under 90 s.
 6. flight    the closed loop at full width (23-joint calibrated Mk3 model,
              LSTM+EKF jets, mission trajectories, flight solver settings):
              batch 1 through ``run_flight`` (2 s settle, 400 ticks) with
@@ -129,6 +144,14 @@ GROUPED_SHAPES = [(SEG_BATCH, SEG_ITERS, g, P, NU, BOX0)
 WOODBURY_GENERAL = [(P2, 132, 0, (1, 64), (0, 1)), (384, 288, 208, (1,), (1,)),
                     (640, 528, 520, (1, 16), (1,)), (640, 528, 0, (1,), (0,))
                     ] + [(BIG_P, BIG_NU, b0, (1,), (0, 1)) for b0 in BIG_BOX0S]
+# the full-space phase: 20 ticks at batch 1, 10 at batch 64, 5 of each
+# against the CPU (batch 64 on its first 4 lanes), one tick profiled (the
+# profiler's post-processing of a tick's 24,000-46,000 kernels takes
+# seconds); debug-log mode 5 ticks at batch 1 and 64; the condense modes at
+# batch 256
+FS_TICKS_B1, FS_TICKS_BATCH, FS_BATCH, FS_CHECK = 20, 10, 64, 5
+FS_CPU_LANES, FS_PROFILED, FS_DEBUG_TICKS = 4, 1, 5
+FS_MODES_BATCH, FS_MODE_REPS, FS_BUDGET_S = 256, 20, 90.0
 # closed-loop flight: 2 s at batch 1; the first 20 s of the mission at batch
 # 64 unless the whole script, the sweep phase after it included, would pass
 # SCRIPT_BUDGET_S
@@ -535,9 +558,12 @@ def read_launches(K):
 
 
 def run_ticks(mpc, replay, problem, carry, settings, batch, n_ticks, jitter,
-              per_tick_sync=False):
+              per_tick_sync=False, sync_check_tick=None):
     """Chain ``n_ticks`` replay ticks; returns (carry, outputs on the host,
-    per-tick host times in ms)."""
+    per-tick host times in ms). An output's DebugInfo comes along when the
+    config emits one. ``sync_check_tick`` runs that tick under
+    ``set_sync_debug_mode("error")``: any call that waits for the device
+    raises."""
     from ironcub_mpc_tpu_torch.core.types import expand_lanes
 
     dev = replay.est_td.device
@@ -546,22 +572,39 @@ def run_ticks(mpc, replay, problem, carry, settings, batch, n_ticks, jitter,
     outs, times = [], []
     for t in range(n_ticks):
         snap, est = replay.tick_inputs(t, batch, jit)
+        if t == sync_check_tick:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
-        c, out = mpc.mpc_tick(replay.cfg, replay.sched, replay.sel, settings,
-                              problem, c, snap, est)
+        try:
+            c, out = mpc.mpc_tick(replay.cfg, replay.sched, replay.sel,
+                                  settings, problem, c, snap, est)
+        finally:
+            if t == sync_check_tick:
+                torch.cuda.set_sync_debug_mode("default")
         if per_tick_sync:
             torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         outs.append(out)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    host = [{k: getattr(o, k).cpu().numpy() for k in
+    host = []
+    for o in outs:
+        h = {k: getattr(o, k).cpu().numpy() for k in
              ("joints_pos_ref", "throttle", "thrust_des", "final_state",
-              "status", "guard_fired")} for o in outs]
+              "status", "guard_fired")}
+        if o.debug is not None:
+            h["debug"] = {k: v.cpu().numpy()
+                          for k, v in o.debug._asdict().items()}
+        host.append(h)
     return c, host, times
 
 
 def compare_streams(gpu, cpu, tol, what):
+    """The card's ticks against the CPU's: statuses and guard flags equal,
+    commands and final state within ``tol`` (final_state relative to its
+    largest entry), a DebugInfo within 1e-4 of each field's largest
+    entry."""
     worst = {k: 0.0 for k in tol}
     for t, (g, c) in enumerate(zip(gpu, cpu)):
         check(np.array_equal(g["status"], c["status"]),
@@ -574,6 +617,12 @@ def compare_streams(gpu, cpu, tol, what):
                 err /= max(float(np.abs(c[k]).max()), 1.0)
             worst[k] = max(worst[k], err)
             check(err <= lim, f"{what} tick {t}: {k} err {err:.3e} > {lim}")
+        for k, v in g.get("debug", {}).items():
+            ref = c["debug"][k]
+            err = float(np.abs(v - ref).max()) / max(
+                float(np.abs(ref).max()), 1.0)
+            worst[f"debug.{k}"] = max(worst.get(f"debug.{k}", 0.0), err)
+            check(err <= 1e-4, f"{what} tick {t}: debug {k} err {err:.3e}")
     return worst
 
 
@@ -746,8 +795,8 @@ def phase_long_horizon(K, dev, record):
 def profile_window(run, n=10):
     """torch.profiler over ``run(n)``, which drives ``n`` ticks: the device's
     busy time and kernel count (every event that ran on the card), the two
-    kernels' device time, the host calls that wait for the device, and the
-    heaviest device kernels and host ops."""
+    kernels' device time, the ``torch.linalg`` calls, the host calls that
+    wait for the device, and the heaviest device kernels and host ops."""
     from torch.profiler import ProfilerActivity, profile
 
     run(1)
@@ -789,11 +838,259 @@ def profile_window(run, n=10):
         device_busy_share=(busy_us / 1e3 / wall if on_card
                            else "not measured"),
         device_kernels_per_tick=sum(ev.count for ev in on_card) / n,
+        linalg_calls_per_tick=sum(ev.count for ev in events
+                                  if ev.key.startswith("aten::linalg_")) / n,
         kernels=ours, host_waits=waits,
         top_device=[(ev.key[:60], ev.count, ev.self_device_time_total / 1e3)
                     for ev in top_dev],
         top_host=[(ev.key[:60], ev.count, ev.self_cpu_time_total / 1e3)
                   for ev in top_host])
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the full-space solver, debug-log mode and the condense modes
+# ---------------------------------------------------------------------------
+
+
+def full_replay(device, **over):
+    """The recorded stream under ``over`` (a solver, the debug flag, a
+    condense mode)."""
+    from ironcub_mpc_tpu_torch.horizon.schedule import build_schedule
+    from ironcub_mpc_tpu_torch.runtime.replay import load_flight_replay
+
+    replay = load_flight_replay(device=device)
+    cfg = dataclasses.replace(replay.cfg, **over)
+    return replay._replace(cfg=cfg, sched=build_schedule(cfg))
+
+
+def lanes_of(outs, n):
+    """The first ``n`` lanes of host outputs."""
+    return [{k: ({dk: dv[:n] for dk, dv in v.items()} if k == "debug"
+                 else v[:n]) for k, v in o.items()} for o in outs]
+
+
+def check_solved(outs, what):
+    status = np.stack([o["status"] for o in outs])
+    check(np.isin(status, (1, 2)).all(),
+          f"{what}: statuses {np.unique(status).tolist()}, not all solved")
+    for o in outs:
+        for k in ("joints_pos_ref", "throttle", "final_state"):
+            check(np.isfinite(o[k]).all(), f"{what}: non-finite {k}")
+    return {int(v): int((status == v).sum()) for v in np.unique(status)}
+
+
+def check_debug(outs, what):
+    """DebugInfo of every lane and tick: finite, Ax within the bounds at
+    5e-3·max(|lb|, 1), the total the sum of the blocks (rtol 1e-6)."""
+    for t, o in enumerate(outs):
+        d = o["debug"]
+        for k, v in d.items():
+            check(np.isfinite(v).all(), f"{what} tick {t}: non-finite {k}")
+        ax, lb, ub = (d[k].astype(np.float64) for k in
+                      ("constraint_ax", "constraint_lb", "constraint_ub"))
+        scale = np.maximum(np.abs(lb), 1.0)
+        check(bool((ax >= lb - 5e-3 * scale).all()
+                   and (ax <= ub + 5e-3 * scale).all()),
+              f"{what} tick {t}: Ax outside [lb, ub]")
+        np.testing.assert_allclose(d["total_cost"],
+                                   d["block_costs"].sum(-1), rtol=1e-6,
+                                   err_msg=f"{what} tick {t}: total_cost")
+
+
+def phase_full_space(K, dev, record):
+    """(a) the full-space tick (qp_solver="full", 588 variables, 512 rows,
+    the default settings: 250 iterations, ρ marks 25 / 75 / 150, polish
+    with 3 refinement steps) on the recorded stream, 20 ticks at batch 1
+    (one under the sync debug mode) and 10 at batch 64, no hand-written
+    kernel launched; (b) debug-log mode under both solvers, 5 ticks at
+    batch 1 and at batch 64; (c) the four condense modes at batch 256 on
+    the first recorded tick, against the sequential chain, timed at batch
+    1 and 256. The card is held against the port's CPU run on the first
+    FS_CHECK ticks (lanes are independent under both solvers' per-lane
+    decisions, so batch 64 is checked on its first FS_CPU_LANES lanes)."""
+    from ironcub_mpc_tpu_torch.core.types import expand_lanes
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.qp import condensed
+    from ironcub_mpc_tpu_torch.qp import mpc
+
+    t_phase = time.perf_counter()
+    out = {}
+    jitter = (0.1 * np.random.default_rng(0).standard_normal((FS_BATCH, 6))
+              ).astype(np.float32)
+    settings = admm.ADMMSettings()
+    check(settings.kernel_mode == "auto" and settings.max_iter == 250
+          and settings.rho_update_iters == (25, 75, 150)
+          and settings.polish and settings.polish_refine_iters == 3,
+          "full_space: not the default solver settings")
+    # the tolerances of tests/test_torch_full.py against JAX
+    tol = dict(joints_pos_ref=1e-4, throttle=1e-3, thrust_des=1e-3,
+               final_state=2e-5)
+
+    def ticks(rp, batch, n, jit, sync_check_tick=None):
+        """n ticks from a fresh configure: host outputs and the mean host ms
+        of the ticks after the first, each synchronised."""
+        problem, carry = rp.configure(settings)
+        _, host, times = run_ticks(mpc, rp, problem, carry, settings, batch,
+                                   n, jit, per_tick_sync=rp.est_td.is_cuda,
+                                   sync_check_tick=sync_check_tick)
+        return host, float(np.mean(times[1:]))
+
+    def against_cpu(gpu, rp_cpu, batch, n, jit, what):
+        lanes = min(batch, FS_CPU_LANES)
+        cpu, _ = ticks(rp_cpu, lanes, n, None if jit is None else jit[:lanes])
+        return lanes, compare_streams(lanes_of(gpu[:n], lanes), cpu, tol,
+                                      what)
+
+    # --- (a) the full-space tick ------------------------------------------
+    replay = full_replay(dev, qp_solver="full")
+    replay_cpu = full_replay("cpu", qp_solver="full")
+    check(replay.cfg.n_var == 588 and replay.cfg.n_constraints == 512,
+          f"full_space: {replay.cfg.n_var} × {replay.cfg.n_constraints}")
+    ticks(replay, 1, 2, None)                                   # warm-up
+    for name, batch, n_ticks, jit in (("batch1", 1, FS_TICKS_B1, None),
+                                      (f"batch{FS_BATCH}", FS_BATCH,
+                                       FS_TICKS_BATCH, jitter)):
+        K.reset_launches()
+        gpu, ms = ticks(replay, batch, n_ticks, jit,
+                        sync_check_tick=2 if batch == 1 else None)
+        launches = read_launches(K)
+        launches["admm_segment_grouped"] = K.admm_segment_grouped.launches
+        check(not any(launches.values()),
+              f"full_space {name}: a hand-written kernel launched: {launches}")
+        counts = check_solved(gpu, f"full_space {name}")
+        lanes, worst = against_cpu(gpu, replay_cpu, batch, FS_CHECK, jit,
+                                   f"full_space {name}")
+        problem, carry = replay.configure(settings)
+        state = [expand_lanes(carry, batch)]
+        jit_t = None if jit is None else torch.as_tensor(jit, device=dev)
+
+        def run(n):
+            for t in range(n):
+                state[0], _ = mpc.mpc_tick(
+                    replay.cfg, replay.sched, replay.sel, settings, problem,
+                    state[0], *replay.tick_inputs(t, batch, jit_t))
+
+        prof = profile_window(run, FS_PROFILED)
+        res = dict(batch=batch, ticks=n_ticks, ms_per_tick=ms,
+                   lane_ticks_per_s=1e3 * batch / ms, status_counts=counts,
+                   launches=launches, max_err_vs_cpu=worst,
+                   cpu_lanes_checked=lanes, profile=prof)
+        out[name] = res
+        print(f"[full_space] {name}: {ms:.3f} ms/tick over {n_ticks - 1} "
+              f"ticks (first excluded), {res['lane_ticks_per_s']:.1f} "
+              f"lane-ticks/s, statuses {counts}, hand-written kernel "
+              f"launches {launches}, max err vs CPU ({lanes} lanes, "
+              f"{FS_CHECK} ticks) {worst}")
+        print(f"[full_space] {name}: profiled {prof['ticks']} tick(s): device "
+              f"busy {prof['device_busy_ms']} ms of {prof['wall_ms']:.3f} ms "
+              f"wall, {prof['device_kernels_per_tick']:.1f} device kernels "
+              f"and {prof['linalg_calls_per_tick']:.1f} torch.linalg calls "
+              f"a tick, host waits {prof['host_waits']}; heaviest device "
+              f"kernels {prof['top_device'][:4]}")
+    print("[full_space] batch1: tick 2 passed set_sync_debug_mode('error')")
+    out["part_s"] = {"full_tick": time.perf_counter() - t_phase}
+
+    # --- (b) debug-log mode under both solvers ------------------------------
+    costs = {}
+    for solver in ("condensed", "full"):
+        over = dict(qp_solver=solver, enable_debug_log_mode=True)
+        rp, rp_cpu = full_replay(dev, **over), full_replay("cpu", **over)
+        for batch, jit in ((1, None), (FS_BATCH, jitter)):
+            name = f"debug_{solver}_batch{batch}"
+            K.reset_launches()
+            gpu, ms = ticks(rp, batch, FS_DEBUG_TICKS, jit)
+            launches = read_launches(K)
+            if solver == "condensed":
+                for k, n in launches.items():
+                    check(n > 0, f"{name}: {k} was never launched")
+            check_solved(gpu, name)
+            check_debug(gpu, name)
+            lanes, worst = against_cpu(gpu, rp_cpu, batch, FS_DEBUG_TICKS,
+                                       jit, name)
+            costs[(solver, batch)] = np.stack(
+                [o["debug"]["block_costs"] for o in gpu])
+            out[name] = dict(batch=batch, ticks=FS_DEBUG_TICKS,
+                             ms_per_tick=ms, launches=launches,
+                             max_err_vs_cpu=worst)
+            print(f"[full_space] {name}: {ms:.3f} ms/tick, launches "
+                  f"{launches}, max err vs CPU ({lanes} lanes) {worst}")
+    for batch in (1, FS_BATCH):
+        a, b = costs[("condensed", batch)], costs[("full", batch)]
+        scale = np.maximum(np.abs(b).max(-1), 1.0)
+        gap = float((np.abs(a - b).max(-1) / scale).max())
+        check(gap < 1e-2, f"debug batch{batch}: block costs of the two "
+              f"solvers differ by {gap:.3e} of scale")
+        out[f"debug_block_cost_gap_batch{batch}"] = gap
+        print(f"[full_space] debug batch{batch}: the two solvers' block "
+              f"costs agree within {gap:.3e} of scale (bound 1e-2)")
+    out["part_s"]["debug_log"] = (time.perf_counter() - t_phase
+                                  - sum(out["part_s"].values()))
+
+    # --- (c) the condense modes ---------------------------------------------
+    rp = full_replay(dev)
+    problem, carry = rp.configure(settings)
+    modes = ("sequential", "assoc", "structured", "paired")
+    out["condense_modes"] = {}
+    for batch in (1, FS_MODES_BATCH):
+        jit = None if batch == 1 else torch.as_tensor(
+            (0.1 * np.random.default_rng(0).standard_normal((batch, 6))
+             ).astype(np.float32), device=dev)
+        c1, prep = mpc._tick_prep(rp.cfg, rp.sel, problem,
+                                  expand_lanes(carry, batch),
+                                  *rp.tick_inputs(0, batch, jit))
+        qps, times = {}, {}
+        for m in modes:
+            cfg = dataclasses.replace(rp.cfg, condense_mode=m)
+
+            def build(cfg=cfg):
+                return mpc.condense_from_prep(cfg, rp.sched, rp.sel,
+                                              problem, c1, prep)[0]
+
+            qps[m] = build()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FS_MODE_REPS):
+                build()
+            torch.cuda.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - t0) / FS_MODE_REPS
+            times[m] = dict(cuda_event_ms=cuda_ms(build, reps=FS_MODE_REPS),
+                            host_ms=host_ms)
+        errs = {}
+        ref = qps["sequential"]
+        f_scale = max(float(ref.f.abs().max()), 1.0)
+        for m in modes[1:]:
+            q = qps[m]
+            e = {"F": float((q.F - ref.F).abs().max()),
+                 "f_rel": float((q.f - ref.f).abs().max()) / f_scale,
+                 "H_rel": float((q.H - ref.H).abs().max()
+                                / ref.H.abs().max()),
+                 "q_rel": float((q.q - ref.q).abs().max()
+                                / ref.q.abs().max())}
+            errs[m] = e
+            check(e["F"] <= 5e-5 and e["f_rel"] <= 5e-5 and e["H_rel"] <= 2e-5
+                  and e["q_rel"] <= 2e-5 and torch.equal(q.lb, ref.lb)
+                  and torch.equal(q.ub, ref.ub),
+                  f"condense mode {m} at batch {batch} differs from the "
+                  f"sequential chain: {e}")
+        out["condense_modes"][f"batch{batch}"] = dict(times=times,
+                                                      err_vs_sequential=errs)
+        print(f"[full_space] condense modes, batch {batch}: "
+              + "; ".join(f"{m} {v['cuda_event_ms']:.3f} ms (CUDA events), "
+                          f"{v['host_ms']:.3f} ms (host clock)"
+                          for m, v in times.items())
+              + f"; against sequential {errs}")
+    check(condensed.n_inputs(rp.cfg) == 120, "condense modes: nU != 120")
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["part_s"]["condense_modes"] = (out["phase_s"]
+                                       - sum(out["part_s"].values()))
+    print(f"[full_space] the phase took {out['phase_s']:.1f} s "
+          f"(budget {FS_BUDGET_S:.0f} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["part_s"].items()))
+    check(out["phase_s"] < FS_BUDGET_S,
+          f"full_space: {out['phase_s']:.1f} s > {FS_BUDGET_S} s")
+    record["full_space"] = out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1280,6 +1577,7 @@ def main():
     seg = phase_segments(K, record)
     main_runs = phase_main(K, dev, record)
     long_runs = phase_long_horizon(K, dev, record)
+    full_space = phase_full_space(K, dev, record)
     flights, start = phase_flight(K, dev, record)
     sweep = phase_sweep(K, dev, record, *start)
     record["total_s"] = time.perf_counter() - T_START
@@ -1299,6 +1597,8 @@ def main():
         "admm_segment_grouped": "ironcub_mpc_tpu/ops/pallas_solve.py:163",
         "woodbury_ns": "ironcub_mpc_tpu/ops/pallas_solve.py:276"}
     paths = [seg] + list(main_runs.values()) + list(long_runs.values()) \
+        + [v for v in full_space.values()
+           if isinstance(v, dict) and "launches" in v] \
         + list(flights.values()) + [sweep]
     line = []
     for name, sel in pick.items():

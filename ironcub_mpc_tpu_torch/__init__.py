@@ -1,15 +1,16 @@
-"""ironcub_mpc_tpu_torch — the condensed multi-rate MPC of ``ironcub_mpc_tpu``
-in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+"""ironcub_mpc_tpu_torch — the multi-rate MPC of ``ironcub_mpc_tpu`` in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The layout mirrors the JAX package so each counterpart is found by name:
 
 - ``core``     state layout, configuration tree (copied numpy-only modules)
                and the tensor containers of the tick.
 - ``horizon``  the variable-sampling-time schedule (copied, numpy-only).
-- ``ops``      SO(3)/RPY algebra, the jet polynomial, solver settings and
-               the three CUDA kernels (``csrc/``) with their launch plans
-               and plain PyTorch twins.
-- ``qp``       linearisation, condensing, the box-QP solve and the tick.
+- ``ops``      SO(3)/RPY algebra, the jet polynomial, the full-space OSQP
+               solver and its settings, and the three CUDA kernels
+               (``csrc/``) with their launch plans and plain PyTorch twins.
+- ``qp``       linearisation, the full-space assembly, condensing (four
+               modes), the box-QP solve, debug-log mode and the tick.
 - ``dynamics`` kinodynamics of the reduced URDF model and the wrenches.
 - ``sim``      the 1 kHz rigid-body plant with LSTM+EKF jets.
 - ``runtime``  the recorded-flight replay loader, the mission trajectories,

@@ -46,7 +46,9 @@ def _container(cls, obj, device, batched=True):
 
 def problem_from_numpy(problem, device) -> MPCProblem:
     """The port's :class:`MPCProblem` (no batch dimension) from the JAX
-    package's problem as numpy leaves."""
+    package's problem as numpy leaves: a condensed problem with its
+    ``cond_scaling``, or a full-space one with its Ruiz ``scaling`` and
+    ``cond_scaling`` None."""
     src = _fields(problem)
     nested = {"lambda_init": LambdaInit, "scaling": Scaling,
               "cond_scaling": CondensedScaling}
@@ -64,7 +66,9 @@ def problem_from_numpy(problem, device) -> MPCProblem:
 
 def carry_from_numpy(carry, device, batched: bool = False) -> MPCCarry:
     """The port's :class:`MPCCarry`; an unbatched JAX carry becomes one
-    lane (leading dimension 1)."""
+    lane (leading dimension 1). A full-space carry keeps its warm start over
+    the whole decision vector and the constraint rows, and ``kinv``,
+    ``rho_vec`` and ``rho_scalar`` None."""
     return _container(MPCCarry, carry, device, batched)
 
 
@@ -112,8 +116,9 @@ def to_device(obj, device):
 
 
 def to_numpy(obj):
-    """Tensors (also inside named tuples, lists and dicts) to numpy arrays on
-    the host; None stays None."""
+    """Tensors (also inside named tuples such as a tick's output and its
+    :class:`~ironcub_mpc_tpu_torch.core.types.DebugInfo`, lists and dicts)
+    to numpy arrays on the host; None stays None."""
     if obj is None:
         return None
     if isinstance(obj, torch.Tensor):

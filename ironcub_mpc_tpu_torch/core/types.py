@@ -61,22 +61,27 @@ class MPCCarry(NamedTuple):
     thrust_dot_des: torch.Tensor     # [4]
     throttle_cmd: torch.Tensor       # [4] physical % throttle last commanded
     joints_pos_ref: torch.Tensor     # [J]
-    warm_x: torch.Tensor             # [nU] ADMM warm start (unscaled)
-    warm_y: torch.Tensor             # [n_box]
+    warm_x: torch.Tensor             # [nU] ADMM warm start (unscaled);
+    #                                  [n_var] for the full-space solver
+    warm_y: torch.Tensor             # [n_box]; [n_constraints] full-space
     kinv: torch.Tensor = None        # [nU, nU] carried (K(ρ))⁻¹, scaled space
     rho_vec: torch.Tensor = None     # [n_box]
     rho_scalar: torch.Tensor = None  # []
 
 
 class DebugInfo(NamedTuple):
-    """Per-tick QP introspection of debug-log mode. Kept as a type only:
-    debug-log mode is not ported yet (``MPCOutput.debug`` is always None)."""
+    """Per-tick QP introspection of debug-log mode
+    (``MPCConfig.enable_debug_log_mode``; ``MPCOutput.debug`` is None with
+    the flag off): per-block ½xᵀH_b x + g_bᵀx and the lb ≤ Ax ≤ ub triples
+    of the reference's constraint stack, costs and Ax zeroed on a lane that
+    did not solve."""
 
-    total_cost: torch.Tensor
-    block_costs: torch.Tensor
-    constraint_lb: torch.Tensor
-    constraint_ax: torch.Tensor
-    constraint_ub: torch.Tensor
+    total_cost: torch.Tensor     # []    sum of the block costs
+    block_costs: torch.Tensor    # [4]   tracking, regularisation, initial
+    #                                    throttle, joint position
+    constraint_lb: torch.Tensor  # [n_constraints]
+    constraint_ax: torch.Tensor  # [n_constraints]
+    constraint_ub: torch.Tensor  # [n_constraints]
 
 
 class MPCOutput(NamedTuple):

@@ -1,5 +1,5 @@
 """Condensed multi-rate MPC solve (counterpart of
-``ironcub_mpc_tpu/qp/condensed.py``, ``sequential`` condense mode).
+``ironcub_mpc_tpu/qp/condensed.py``).
 
 The states are eliminated exactly through the dynamics, leaving the box QP
 
@@ -19,6 +19,7 @@ lane with ``torch.where`` (what ``lax.cond`` under ``vmap`` lowers to).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -156,21 +157,217 @@ def build_hu(cfg: MPCConfig) -> np.ndarray:
     return H
 
 
-def condense(cfg: MPCConfig, sched: HorizonSchedule, lin: LinearizedDynamics,
-             x0, state_reference, q_diag, H_u, joint_reg_grad,
-             throttle_init_grad, pin_first_knot, throttle_cmd,
-             joint_pos_ctrl=None) -> CondensedQP:
-    """Propagate the discrete dynamics and fold the tracking cost into u:
-    x_{k+1} = (I + Δt_k Ac) x_k + Δt_k (BJ Δq_{jk(k)} + BT v_{tk(k)} + c),
-    H_c = Σ F_kᵀ Q F_k + H_u,  q_c = Σ F_kᵀ Q (f_k − r_k) + q_u."""
-    if cfg.condense_mode not in ("sequential", "structured"):
-        raise NotImplementedError(
-            f"condense_mode {cfg.condense_mode!r} is not ported; only "
-            "'sequential' is")
-    if cfg.condense_mode == "structured" and cfg.use_jet_dynamic:
-        raise NotImplementedError("condense_mode 'structured' is not ported")
-    ns = cfg.n_states
+class _InputMaps(NamedTuple):
+    """Static one-hot maps of the inputs a step drives, over the nU input
+    columns and an affine column nU."""
+
+    joint: torch.Tensor    # [nIter, nj, nU+1]: Δq_{jk(k)} columns of step k
+    throttle: torch.Tensor  # [nIter, nt, nU+1]: v_{tk(k)} columns
+    affine: torch.Tensor   # [nU+1]: the affine-column selector
+    dts: torch.Tensor      # [nIter]
+
+
+@functools.lru_cache(maxsize=None)
+def _input_maps(cfg: MPCConfig, sched: HorizonSchedule, device,
+                dtype) -> _InputMaps:
+    """Made once on ``device``; read only for its callers."""
     nU = n_inputs(cfg)
+    nj, nt, ch, N = (cfg.n_ctrl_joints, cfg.n_jets, cfg.control_horizon,
+                     cfg.n_iter)
+    oh_j = np.zeros((N, nj, nU + 1))
+    oh_t = np.zeros((N, nt, nU + 1))
+    for k in range(N):
+        jc = sched.joint_knot_of_step[k] * nj
+        oh_j[k, :, jc:jc + nj] = np.eye(nj)
+        tc = nj * ch + sched.throttle_knot_of_step[k] * nt
+        oh_t[k, :, tc:tc + nt] = np.eye(nt)
+    aff = np.zeros(nU + 1)
+    aff[nU] = 1.0
+    return _InputMaps(*(torch.as_tensor(a, dtype=dtype, device=device)
+                        for a in (oh_j, oh_t, aff,
+                                  np.asarray(sched.dts, np.float64))))
+
+
+def _step_panels(maps: _InputMaps, lin: LinearizedDynamics):
+    """M̃_k = [Δt_k (BJ S_j,k + BT S_t,k) | Δt_k c] [B, nIter, 26, nU+1]:
+    the one-hot products place each block exactly."""
+    dts = maps.dts[:, None, None]
+    M = dts * (lin.BJ[:, None] @ maps.joint + lin.BT[:, None] @ maps.throttle)
+    return M + (dts * lin.c[:, None, :, None]) * maps.affine
+
+
+def _assoc_chain(cfg: MPCConfig, sched: HorizonSchedule,
+                 lin: LinearizedDynamics, x0):
+    """Horizon-parallel condensing: the per-knot affine maps
+    x_{k+1} = Ad_k x_k + (M_k u + Δt_k c) compose associatively —
+    (A2,B2)∘(A1,B1) = (A2A1, A2B1+B2) — so the prefix compositions take
+    ⌈log₂ nIter⌉ levels of batched [26,26] × [26,nU+1] products (a
+    Hillis–Steele scan; XLA's ``associative_scan`` composes in another
+    tree, so the rounding differs)."""
+    nU = n_inputs(cfg)
+    maps = _input_maps(cfg, sched, lin.Ac.device, lin.Ac.dtype)
+    N = cfg.n_iter
+    A_cum = _eye(cfg.n_states, lin.Ac) + maps.dts[:, None, None] * lin.Ac[:, None]
+    B_cum = _step_panels(maps, lin)
+    s = 1
+    while s < N:
+        A_later = A_cum[:, s:]
+        A_cum = torch.cat([A_cum[:, :s], A_later @ A_cum[:, :N - s]], dim=1)
+        B_cum = torch.cat([B_cum[:, :s],
+                           A_later @ B_cum[:, :N - s] + B_cum[:, s:]], dim=1)
+        s *= 2
+    f_all = (A_cum @ x0[:, None, :, None])[..., 0] + B_cum[..., nU]
+    return B_cum[..., :nU], f_all
+
+
+def _mat3(M, X):
+    """[B,3,3] @ [B,3,W] as a broadcast multiply and a 3-term sum."""
+    return (M[:, :, :, None] * X[:, None, :, :]).sum(dim=2)
+
+
+def _structured_chain(cfg: MPCConfig, sched: HorizonSchedule,
+                      lin: LinearizedDynamics, x0):
+    """Exact state propagation exploiting Ac's block structure.
+
+    The 26-state transition is ~85% structural zeros: the only genuinely
+    recursive states are the two momenta (3-dim each, coupled to themselves
+    by −S(ω)) and the per-jet (T, Ṫ) pairs (decoupled 2-dim systems).
+    Everything else integrates them: CoM integrates R/m·h_lin, RPY
+    integrates W⁻¹I⁻¹·h_ω, the error states integrate CoM/RPY — prefix
+    sums, not chains. So the chain shrinks to elementwise updates on
+    [3, nU+1] / [4, nU+1] panels, with every coupling and prefix sum
+    computed for all steps at once. The affine response f rides as column
+    nU of each panel."""
+    if not cfg.use_jet_dynamic:
+        raise ValueError("structured condensing needs the jet chain")
+    nU = n_inputs(cfg)
+    ac, B_ = lin.Ac, lin.Ac.shape[0]
+    maps = _input_maps(cfg, sched, ac.device, ac.dtype)
+    aff = maps.affine
+    N = cfg.n_iter
+
+    def init_panel(rows):
+        p = torch.zeros((B_, rows.stop - rows.start, nU + 1), dtype=ac.dtype,
+                        device=ac.device)
+        p[:, :, nU] = x0[:, rows]
+        return p
+
+    def diag(M):
+        return torch.diagonal(M, dim1=-2, dim2=-1)
+
+    # --- jet subchain: per-jet (T, Ṫ) pairs, all elementwise ---------------
+    d1 = diag(ac[:, C.THRUST_DOT, C.THRUST])[:, :, None]        # [B,4,1]
+    d2 = diag(ac[:, C.THRUST_DOT, C.THRUST_DOT])[:, :, None]
+    g_eff = diag(lin.BT[:, C.THRUST_DOT])                       # [B,4]
+    c_td = lin.c[:, C.THRUST_DOT]
+    U_T = (g_eff[:, None, :, None] * maps.throttle
+           + c_td[:, None, :, None] * aff)                      # [B,N,4,W]
+    T0, Td0 = init_panel(C.THRUST), init_panel(C.THRUST_DOT)
+    T, Td, T_seq, Td_seq = T0, Td0, [], []
+    for k in range(N):
+        dtk = maps.dts[k]
+        T, Td = T + dtk * Td, Td + dtk * (d1 * T + d2 * Td + U_T[:, k])
+        T_seq.append(T)
+        Td_seq.append(Td)
+    T_seq, Td_seq = torch.stack(T_seq, 1), torch.stack(Td_seq, 1)
+    T_pre = torch.cat([T0[:, None], T_seq[:, :-1]], dim=1)     # [B,N,4,W]
+
+    # --- momentum subchains: 3-dim, coupled to themselves by −S(ω) ---------
+    def coupled(rows):
+        return (torch.einsum("bij,bkjw->bkiw", ac[:, rows, C.THRUST], T_pre)
+                + torch.einsum("bij,kjw->bkiw", lin.BJ[:, rows], maps.joint)
+                + lin.c[:, rows][:, None, :, None] * aff)       # [B,N,3,W]
+
+    V_lm, V_am = coupled(C.LIN_MOM), coupled(C.ANG_MOM)
+    S_lm, S_am = ac[:, C.LIN_MOM, C.LIN_MOM], ac[:, C.ANG_MOM, C.ANG_MOM]
+    lm0, am0 = init_panel(C.LIN_MOM), init_panel(C.ANG_MOM)
+    lm, am, lm_seq, am_seq = lm0, am0, [], []
+    for k in range(N):
+        dtk = maps.dts[k]
+        lm = lm + dtk * (_mat3(S_lm, lm) + V_lm[:, k])
+        am = am + dtk * (_mat3(S_am, am) + V_am[:, k])
+        lm_seq.append(lm)
+        am_seq.append(am)
+    lm_seq, am_seq = torch.stack(lm_seq, 1), torch.stack(am_seq, 1)
+    lm_pre = torch.cat([lm0[:, None], lm_seq[:, :-1]], dim=1)
+    am_pre = torch.cat([am0[:, None], am_seq[:, :-1]], dim=1)
+
+    # --- integrator states: prefix sums over the horizon -------------------
+    d = maps.dts[:, None, None]
+
+    def integrate(gain, src_pre, rows):
+        inc = d * (torch.einsum("bij,bkjw->bkiw", gain, src_pre)
+                   + lin.c[:, rows][:, None, :, None] * aff)
+        return torch.cumsum(inc, dim=1) + init_panel(rows)[:, None]
+
+    com_seq = integrate(ac[:, C.COM_POS, C.LIN_MOM], lm_pre, C.COM_POS)
+    rpy_seq = integrate(ac[:, C.RPY, C.ANG_MOM], am_pre, C.RPY)
+    eye3 = _eye(3, ac).expand(B_, 3, 3)
+    com_pre = torch.cat([init_panel(C.COM_POS)[:, None], com_seq[:, :-1]], 1)
+    rpy_pre = torch.cat([init_panel(C.RPY)[:, None], rpy_seq[:, :-1]], 1)
+    pe_seq = integrate(eye3, com_pre, C.POS_ERR)
+    re_seq = integrate(eye3, rpy_pre, C.RPY_ERR)
+
+    panels = torch.cat([com_seq, lm_seq, rpy_seq, am_seq, T_seq, Td_seq,
+                        pe_seq, re_seq], dim=2)                # [B,N,26,W]
+    return panels[..., :nU], panels[..., nU]
+
+
+def _paired_chain(cfg: MPCConfig, sched: HorizonSchedule,
+                  lin: LinearizedDynamics, x0):
+    """Exact chain with half the sequential depth: consecutive steps share
+    Ac, so a pair collapses to one matrix,
+    Ad_{k+1}·Ad_k = I + (Δt_k+Δt_{k+1})Ac + Δt_k·Δt_{k+1}·Ac². The chain
+    runs ⌈N/2⌉ [26,26]@[26,nU+1] products over the even knots, and every
+    odd (and a trailing final) knot is recovered afterwards in one batched
+    product. f rides as the affine column."""
+    ns, nU, N = cfg.n_states, n_inputs(cfg), cfg.n_iter
+    ac = lin.Ac
+    maps = _input_maps(cfg, sched, ac.device, ac.dtype)
+    eye = _eye(ns, ac)
+    Mt = _step_panels(maps, lin)                               # [B,N,26,W]
+
+    n_pairs = N // 2
+    a = maps.dts[0:2 * n_pairs:2][:, None, None]
+    b = maps.dts[1:2 * n_pairs:2][:, None, None]
+    Ac2 = ac @ ac
+    Ad2 = eye + (a + b) * ac[:, None] + (a * b) * Ac2[:, None]  # [B,P,26,26]
+    Ad_odd = eye + b * ac[:, None]
+    M2 = Ad_odd @ Mt[:, 0:2 * n_pairs:2] + Mt[:, 1:2 * n_pairs:2]
+
+    F0 = torch.zeros((ac.shape[0], ns, nU + 1), dtype=ac.dtype,
+                     device=ac.device)
+    F0[..., nU] = x0
+    Ft, evens = F0, []
+    for p in range(n_pairs):
+        Ft = Ad2[:, p] @ Ft + M2[:, p]                         # F̃_(2p+2)
+        evens.append(Ft)
+
+    # recover the odd knots (and the final knot when N is odd) in one batch:
+    # F̃_(2p+1) = Ad_(2p) F̃_(2p) + M̃_(2p); F̃_(N) = Ad_(N-1) F̃_(N-1) + M̃_(N-1)
+    rec_steps = list(range(0, 2 * n_pairs, 2))
+    rec_prev = [F0] + evens[:-1]
+    if N % 2 == 1:
+        rec_steps.append(N - 1)
+        rec_prev.append(evens[-1])
+    steps = index_tensor(tuple(rec_steps), ac.device)
+    Ad_rec = eye + maps.dts[steps][:, None, None] * ac[:, None]
+    rec = Ad_rec @ torch.stack(rec_prev, 1) + Mt[:, steps]    # odd (+ final)
+
+    panels = []
+    for p in range(n_pairs):
+        panels += [rec[:, p], evens[p]]                        # F̃_(2p+1), (2p+2)
+    if N % 2 == 1:
+        panels.append(rec[:, n_pairs])                         # F̃_(N)
+    stacked = torch.stack(panels, 1)                           # [B,N,26,W]
+    return stacked[..., :nU], stacked[..., nU]
+
+
+def _sequential_chain(cfg: MPCConfig, sched: HorizonSchedule,
+                      lin: LinearizedDynamics, x0):
+    """The forward chain: F_{k+1} = Ad_k F_k + M_k, f_{k+1} = Ad_k f_k +
+    Δt_k c."""
+    ns, nU = cfg.n_states, n_inputs(cfg)
     nj, nt, ch = cfg.n_ctrl_joints, cfg.n_jets, cfg.control_horizon
     Ac = lin.Ac
     B = Ac.shape[0]
@@ -191,8 +388,33 @@ def condense(cfg: MPCConfig, sched: HorizonSchedule, lin: LinearizedDynamics,
         f = _mv(Ad, f) + dtk * lin.c
         Fs.append(F)
         fs.append(f)
-    F_all = torch.stack(Fs, dim=1)             # [B, nIter, 26, nU]
-    f_all = torch.stack(fs, dim=1)             # [B, nIter, 26]
+    return torch.stack(Fs, dim=1), torch.stack(fs, dim=1)
+
+
+def condense(cfg: MPCConfig, sched: HorizonSchedule, lin: LinearizedDynamics,
+             x0, state_reference, q_diag, H_u, joint_reg_grad,
+             throttle_init_grad, pin_first_knot, throttle_cmd,
+             joint_pos_ctrl=None) -> CondensedQP:
+    """Propagate the discrete dynamics and fold the tracking cost into u:
+    x_{k+1} = (I + Δt_k Ac) x_k + Δt_k (BJ Δq_{jk(k)} + BT v_{tk(k)} + c),
+    H_c = Σ F_kᵀ Q F_k + H_u,  q_c = Σ F_kᵀ Q (f_k − r_k) + q_u. The
+    chain (F_k, f_k) is built per ``cfg.condense_mode``: "sequential",
+    "assoc", "structured" or "paired" (without jet dynamics "structured"
+    is the sequential chain)."""
+    if cfg.condense_mode == "assoc":
+        F_all, f_all = _assoc_chain(cfg, sched, lin, x0)
+    elif cfg.condense_mode == "structured" and cfg.use_jet_dynamic:
+        F_all, f_all = _structured_chain(cfg, sched, lin, x0)
+    elif cfg.condense_mode == "paired":
+        F_all, f_all = _paired_chain(cfg, sched, lin, x0)
+    elif cfg.condense_mode in ("sequential", "structured"):
+        F_all, f_all = _sequential_chain(cfg, sched, lin, x0)
+    else:
+        raise ValueError(
+            f"unknown condense_mode {cfg.condense_mode!r}; "
+            "expected 'assoc', 'sequential', 'structured' or 'paired'")
+    nj, nt, ch = cfg.n_ctrl_joints, cfg.n_jets, cfg.control_horizon
+    B, dt_, dev = x0.shape[0], x0.dtype, x0.device
     r = state_reference.mT                     # [B, nIter, 26]
     # contract only over weighted states (a static gather)
     w_idx = index_tensor(weighted_state_indices(cfg), dev)

@@ -1,13 +1,19 @@
-"""The condensed multi-rate MPC tick (counterpart of
-``ironcub_mpc_tpu/qp/mpc.py``, ``qp_solver == "condensed"``).
+"""The multi-rate MPC tick (counterpart of ``ironcub_mpc_tpu/qp/mpc.py``).
 
 ``configure`` builds the constant problem, the initial reference window,
-the frozen condensed equilibration and the initial carry; ``mpc_tick`` is
-one 200 Hz controller step — reference-window shift, linearisation,
-condensing, warm-started box-QP solve, command extraction — as a function
+the setup-time equilibration and the initial carry; ``mpc_tick`` is one
+200 Hz controller step — reference-window shift, linearisation, QP build,
+warm-started solve, command extraction — as a function
 ``(carry, snapshot) -> (carry', output)`` on batched tensors. The problem
 is shared by every lane; carry, snapshot and output carry a leading batch
 dimension B.
+
+Solve strategy per ``cfg.qp_solver``: "condensed" eliminates the states
+exactly into a 120-input box QP solved with a carried K⁻¹ and the
+hand-written kernels; "full" solves the 588 × 512 form with the OSQP
+scheme of :mod:`ironcub_mpc_tpu_torch.ops.admm`, as the reference does.
+With ``cfg.enable_debug_log_mode`` each output carries a
+:class:`~ironcub_mpc_tpu_torch.core.types.DebugInfo`.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch
 from .. import resolve_device
 from ..core import constants as C
 from ..core.config import MPCConfig
-from ..core.types import MPCCarry, MPCOutput, RobotSnapshot, index_tensor
+from ..core.types import (DebugInfo, MPCCarry, MPCOutput, RobotSnapshot,
+                          const_tensor, index_tensor)
 from ..horizon.schedule import HorizonSchedule
 from ..ops import admm
 from ..ops import jet_model as jm
@@ -45,7 +52,9 @@ class MPCProblem(NamedTuple):
     traj_rpy: torch.Tensor            # [T, 3] RPY
     traj_rpydot: torch.Tensor         # [T, 3] RPYDot
     alpha_traj: torch.Tensor          # [Ta] alphaGravity at MPC rate
-    scaling: admm.Scaling             # full-space scaling (identity here)
+    scaling: admm.Scaling             # full-space Ruiz scaling (identity
+                                      # for the condensed solver)
+    # frozen condensed-space equilibration (None for the full-space solver)
     cond_scaling: condensed.CondensedScaling = None
 
 
@@ -128,6 +137,87 @@ def _initial_state(cfg: MPCConfig, carry: MPCCarry, snap: RobotSnapshot,
 
 
 # ---------------------------------------------------------------------------
+# debug-log mode (IMPCProblem.cpp:300-408: per-block ½xᵀHx+gᵀx and
+# lb ≤ Ax ≤ ub triples, zeroed on non-solved lanes)
+# ---------------------------------------------------------------------------
+
+
+def _block_costs(cfg: MPCConfig, q_diag, states, state_ref, u,
+                 joint_reg_grad, throttle_init_grad):
+    """Per-cost-block ½xᵀH_b x + g_bᵀx values [B, 4], registration order
+    (variableSamplingMPC.cpp:70-76): tracking, joint and throttle-rate
+    regularisation, initial throttle, joint position. ``states``
+    [B, nIter, 26] are knots 1..nIter, ``state_ref`` [B, 26, nIter]."""
+    nj, nt, ch = cfg.n_ctrl_joints, cfg.n_jets, cfg.control_horizon
+    B = u.shape[0]
+    tracking = ((0.5 * states - state_ref.mT) * q_diag * states).sum((-2, -1))
+    dq = u[:, :nj * ch].reshape(B, ch, nj)
+    wj = const_tensor(tuple(cfg.weight_delta_joint), u.dtype, u.device)
+    reg = 0.5 * (dq * dq * wj).sum((-2, -1))
+    v = u[:, nj * ch:].reshape(B, -1, nt)
+    dv = v[:, 1:] - v[:, :-1]
+    reg = reg + 0.5 * cfg.weight_throttle * (dv * dv).sum((-2, -1))
+    thr0 = (0.5 * cfg.weight_initial_throttle * (v[:, 0] * v[:, 0]).sum(-1)
+            + (throttle_init_grad * v[:, 0]).sum(-1))
+    jreg = (0.5 * cfg.weight_regularization_joint_pos * (dq * dq).sum((-2, -1))
+            + (joint_reg_grad[:, None, :] * dq).sum((-2, -1)))
+    return torch.stack([tracking, reg, thr0, jreg], dim=-1)
+
+
+def _solved(status):
+    return (status == admm.SOLVED) | (status == admm.SOLVED_INACCURATE)
+
+
+def _debug_info(costs, lb, ax, ub, status) -> DebugInfo:
+    solved = _solved(status)[:, None]
+    costs = torch.where(solved, costs, 0.0)
+    return DebugInfo(total_cost=costs.sum(-1), block_costs=costs,
+                     constraint_lb=lb, constraint_ax=torch.where(solved, ax,
+                                                                 0.0),
+                     constraint_ub=ub)
+
+
+def _debug_condensed(cfg: MPCConfig, sched, prep, qp, csol, q_diag,
+                     joint_reg_grad, throttle_init_grad) -> DebugInfo:
+    """Triples for the condensed path without re-assembling A: dynamics and
+    initial-state equalities hold exactly by construction of the
+    elimination, so their Ax equals the bound; box rows carry the true
+    iterate. Row order and padding match the reference stack
+    (IMPCProblem.cpp:83-134, constraintsVSMPC.cpp:283 zero-row quirk)."""
+    u = csol.u
+    B, dt_, dev = u.shape[0], u.dtype, u.device
+    dts = const_tensor(tuple(sched.dts), dt_, dev)
+    b_dyn = (-dts[:, None] * prep.lin.c[:, None, :]).reshape(B, -1)
+    n_tk = cfg.n_jets * cfg.n_throttle_knots
+    pad = torch.zeros((B, cfg.n_throttle_constraints - n_tk), dtype=dt_,
+                      device=dev)
+    lbs = [b_dyn, prep.x0, qp.lb[:, -n_tk:], pad]
+    ubs = [b_dyn, prep.x0, qp.ub[:, -n_tk:], pad]
+    axs = [b_dyn, prep.x0, u[:, -n_tk:], pad]
+    if cfg.use_joint_position_constraint:
+        njc = cfg.n_ctrl_joints * cfg.control_horizon
+        padj = torch.zeros((B, cfg.n_joint_position_constraints - njc),
+                           dtype=dt_, device=dev)
+        lbs += [qp.lb[:, :njc], padj]
+        ubs += [qp.ub[:, :njc], padj]
+        axs += [u[:, :njc], padj]
+    costs = _block_costs(cfg, q_diag, csol.states, prep.state_ref, u,
+                         joint_reg_grad, throttle_init_grad)
+    return _debug_info(costs, torch.cat(lbs, -1), torch.cat(axs, -1),
+                       torch.cat(ubs, -1), csol.status)
+
+
+def _debug_full(cfg: MPCConfig, problem, prep, x, A, lb, ub, status,
+                joint_reg_grad, throttle_init_grad) -> DebugInfo:
+    ns = cfg.n_states
+    states = x[:, ns:ns * (cfg.n_iter + 1)].reshape(-1, cfg.n_iter, ns)
+    costs = _block_costs(cfg, torch.diagonal(problem.Q), states,
+                         prep.state_ref, x[:, cfg.joints_offset:],
+                         joint_reg_grad, throttle_init_grad)
+    return _debug_info(costs, lb, (A @ x[..., None])[..., 0], ub, status)
+
+
+# ---------------------------------------------------------------------------
 # one tick
 # ---------------------------------------------------------------------------
 
@@ -164,15 +254,23 @@ def _tick_prep(cfg, joint_sel, problem: MPCProblem, carry: MPCCarry,
     return carry, TickPrep(state_ref=state_ref, lin=lin, x0=x0, pin=pin)
 
 
+def _tick_gradients(cfg, sel, problem: MPCProblem, carry: MPCCarry):
+    """The joint-regularisation and initial-throttle gradients of the QP
+    built from ``carry``."""
+    joint_reg_grad = cfg.weight_regularization_joint_pos * (
+        carry.joints_pos_ref[:, sel] - problem.joint_pos_ref_ctrl)
+    throttle_init_grad = (-cfg.weight_initial_throttle
+                          * jm.throttle_to_v(carry.throttle_cmd))
+    return joint_reg_grad, throttle_init_grad
+
+
 def condense_from_prep(cfg: MPCConfig, sched, joint_sel,
                        problem: MPCProblem, carry: MPCCarry, prep: TickPrep):
     """Per-tick gradients + exact state elimination."""
     sel = index_tensor(tuple(joint_sel), carry.joints_pos_ref.device)
     q_diag = torch.diagonal(problem.Q)
-    joint_reg_grad = cfg.weight_regularization_joint_pos * (
-        carry.joints_pos_ref[:, sel] - problem.joint_pos_ref_ctrl)
-    throttle_init_grad = (-cfg.weight_initial_throttle
-                          * jm.throttle_to_v(carry.throttle_cmd))
+    joint_reg_grad, throttle_init_grad = _tick_gradients(cfg, sel, problem,
+                                                         carry)
     qp = condensed.condense(
         cfg, sched, prep.lin, prep.x0, prep.state_ref, q_diag,
         problem.H_u, joint_reg_grad, throttle_init_grad, prep.pin,
@@ -193,12 +291,19 @@ def solve_condensed(cfg: MPCConfig, settings: admm.ADMMSettings,
         rho_scalar_prev=carry.rho_scalar if use_carry else None)
 
 
-def _check_supported(cfg: MPCConfig):
-    if cfg.qp_solver != "condensed":
-        raise NotImplementedError(
-            f"qp_solver {cfg.qp_solver!r} is not ported; only 'condensed' is")
-    if cfg.enable_debug_log_mode:
-        raise NotImplementedError("debug-log mode is not ported")
+def _assemble(cfg, sched, joint_sel, problem: MPCProblem, carry: MPCCarry,
+              snap: RobotSnapshot, est_thrust_dot):
+    """Full-space gradient + constraint stack for the current tick."""
+    carry, prep = _tick_prep(cfg, joint_sel, problem, carry, snap,
+                             est_thrust_dot)
+    jp = carry.joints_pos_ref[:, index_tensor(tuple(joint_sel),
+                                              carry.joints_pos_ref.device)]
+    g = assembly.build_gradient(cfg, problem.Q, prep.state_ref, jp,
+                                problem.joint_pos_ref_ctrl, carry.throttle_cmd)
+    A, lb, ub = assembly.assemble_constraints(
+        cfg, sched, prep.lin, prep.x0, prep.pin, carry.throttle_cmd,
+        joint_pos_ctrl=jp)
+    return g, A, lb, ub, carry, prep
 
 
 def mpc_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel: Tuple[int, ...],
@@ -207,28 +312,41 @@ def mpc_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel: Tuple[int, ...],
              est_thrust_dot) -> Tuple[MPCCarry, MPCOutput]:
     """One 200 Hz multi-rate MPC step for every lane: update + solve +
     extract. ``est_thrust_dot`` is [B, 4]."""
-    _check_supported(cfg)
+    if cfg.qp_solver == "condensed":
+        carry, prep = _tick_prep(cfg, joint_sel, problem, carry, snap,
+                                 est_thrust_dot)
+        qp = condense_from_prep(cfg, sched, joint_sel, problem, carry,
+                                prep)[0]
+        csol = solve_condensed(cfg, settings, problem, carry, qp)
+        return extract_condensed(cfg, joint_sel, carry, csol, settings,
+                                 problem, sched, prep, qp)
     nj, nt = cfg.n_ctrl_joints, cfg.n_jets
-    carry, prep = _tick_prep(cfg, joint_sel, problem, carry, snap,
-                             est_thrust_dot)
-    qp, _, _, _ = condense_from_prep(cfg, sched, joint_sel, problem, carry,
-                                     prep)
-    csol = solve_condensed(cfg, settings, problem, carry, qp)
-    if settings.kinv_carry:
-        carry = carry._replace(kinv=csol.kinv, rho_vec=csol.rho_vec,
-                               rho_scalar=csol.rho_scalar)
-    to = nj * cfg.control_horizon
+    sel = index_tensor(tuple(joint_sel), carry.joints_pos_ref.device)
+    g, A, lb, ub, carry, prep = _assemble(cfg, sched, joint_sel, problem,
+                                          carry, snap, est_thrust_dot)
+    data = admm.prepare(problem.H, g, A, lb, ub, settings,
+                        scaling=problem.scaling)
+    sol = admm.solve_prepared(data, settings, x0=carry.warm_x,
+                              y0=carry.warm_y)
+    debug = None
+    if cfg.enable_debug_log_mode:
+        debug = _debug_full(cfg, problem, prep, sol.x, A, lb, ub, sol.status,
+                            *_tick_gradients(cfg, sel, problem, carry))
+    # extraction (variableSamplingMPC.cpp:88-112)
+    ns, x = cfg.n_states, sol.x
+    jo, to = cfg.joints_offset, cfg.throttle_offset
     return _finish_tick(
-        cfg, index_tensor(tuple(joint_sel), carry.joints_pos_ref.device),
-        carry, csol.u[:, :nj], csol.u[:, to:to + nt],
-        csol.states[:, 0, C.THRUST], csol.states[:, 0, C.THRUST_DOT],
-        csol.states[:, -1], csol.status, csol.pri_res, csol.dua_res,
-        csol.u, csol.y, csol.guard_fired)
+        cfg, sel, carry, x[:, jo:jo + nj], x[:, to:to + nt],
+        x[:, ns + C.THRUST0:ns + C.THRUST0 + 4],
+        x[:, ns + C.THRUST_DOT0:ns + C.THRUST_DOT0 + 4],
+        x[:, ns * cfg.n_iter:ns * (cfg.n_iter + 1)], sol.status, sol.pri_res,
+        sol.dua_res, sol.x, sol.y,
+        torch.zeros_like(sol.status, dtype=torch.bool), debug)
 
 
 def _finish_tick(cfg, sel, carry: MPCCarry, delta_joints, throttle_v,
                  thrust_des, thrust_dot_des, final_state, status, pri_res,
-                 dua_res, warm_x, warm_y, guard_fired):
+                 dua_res, warm_x, warm_y, guard_fired, debug=None):
     """Command integration + output assembly: joint deltas integrate into
     the absolute reference, throttle destandardises; non-solved lanes keep
     their previous commands."""
@@ -259,9 +377,42 @@ def _finish_tick(cfg, sel, carry: MPCCarry, delta_joints, throttle_v,
         rpy_ref=carry.rpy_ref_now,
         mom_ref=carry.mom_ref_now,
         guard_fired=guard_fired,
-        debug=None,
+        debug=debug,
     )
     return carry, out
+
+
+def extract_condensed(cfg: MPCConfig, joint_sel, carry: MPCCarry,
+                      csol: condensed.CondensedSolution,
+                      settings: admm.ADMMSettings,
+                      problem: MPCProblem = None,
+                      sched: HorizonSchedule = None, prep: TickPrep = None,
+                      qp: condensed.CondensedQP = None):
+    """The tail of the condensed tick: solution slicing + command
+    integration (``mpc_tick`` ends with it, and so can a runner that solves
+    the QP as a stage of its own).
+
+    When ``enable_debug_log_mode`` is on, pass ``problem``/``sched``/
+    ``prep``/``qp`` so the per-block DebugInfo is emitted exactly like the
+    monolithic tick; otherwise ``out.debug`` is None."""
+    nj, nt = cfg.n_ctrl_joints, cfg.n_jets
+    sel = index_tensor(tuple(joint_sel), carry.joints_pos_ref.device)
+    debug = None
+    if cfg.enable_debug_log_mode and qp is not None:
+        # the gradients of condense_from_prep, from the carry the QP was
+        # built from
+        debug = _debug_condensed(cfg, sched, prep, qp, csol,
+                                 torch.diagonal(problem.Q),
+                                 *_tick_gradients(cfg, sel, problem, carry))
+    if settings.kinv_carry:
+        carry = carry._replace(kinv=csol.kinv, rho_vec=csol.rho_vec,
+                               rho_scalar=csol.rho_scalar)
+    to = nj * cfg.control_horizon
+    return _finish_tick(
+        cfg, sel, carry, csol.u[:, :nj], csol.u[:, to:to + nt],
+        csol.states[:, 0, C.THRUST], csol.states[:, 0, C.THRUST_DOT],
+        csol.states[:, -1], csol.status, csol.pri_res, csol.dua_res,
+        csol.u, csol.y, csol.guard_fired, debug)
 
 
 # ---------------------------------------------------------------------------
@@ -280,10 +431,11 @@ def configure(cfg: MPCConfig, sched: HorizonSchedule,
     ``snap0`` is a one-lane snapshot (leading dimension 1). As the
     reference's configure, the first compute runs here: it advances the
     reference window and the alphaGravity cursor once and computes the
-    frozen equilibration and the initial (K(ρ))⁻¹ from the first QP.
-    Runs on ``cuda`` unless ``device`` says otherwise.
+    equilibration from the first QP: the frozen condensed scaling and the
+    initial (K(ρ))⁻¹ for the condensed solver, the Ruiz scaling of the
+    full-space QP (``problem.scaling``, no carried inverse) for the full
+    one. Runs on ``cuda`` unless ``device`` says otherwise.
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
 
     def f(a):
@@ -335,6 +487,7 @@ def configure(cfg: MPCConfig, sched: HorizonSchedule,
         return v[:, :, None].expand(1, 3, n_ref).clone()
 
     last = cfg.ratio_small_large - 1
+    cond = cfg.qp_solver == "condensed"
     carry = MPCCarry(
         rpy_old=rpy0, n_turns=torch.zeros((1, 3), **i32),
         # both counters start saturated so the configure-time first compute
@@ -352,13 +505,20 @@ def configure(cfg: MPCConfig, sched: HorizonSchedule,
         thrust_dot_des=torch.zeros((1, 4), dtype=dtype, device=dev),
         throttle_cmd=initial_throttle,
         joints_pos_ref=snap0.joint_pos.clone(),
-        warm_x=torch.zeros((1, condensed.n_inputs(cfg)), dtype=dtype,
-                           device=dev),
-        warm_y=torch.zeros((1, condensed.n_box(cfg)), dtype=dtype,
-                           device=dev),
+        warm_x=torch.zeros((1, condensed.n_inputs(cfg) if cond
+                            else cfg.n_var), dtype=dtype, device=dev),
+        warm_y=torch.zeros((1, condensed.n_box(cfg) if cond
+                            else cfg.n_constraints), dtype=dtype, device=dev),
     )
 
     # --- the configure-time first compute ---------------------------------
+    if not cond:
+        g, A, lb, ub, carry, _ = _assemble(cfg, sched, joint_sel, problem,
+                                           carry, snap0, est_thrust_dot)
+        *_, scaling = admm.ruiz_equilibration(problem.H, g, A, lb, ub,
+                                              settings.scaling_iters)
+        return problem._replace(scaling=admm.Scaling(
+            *(t[0] for t in scaling))), carry
     carry, prep = _tick_prep(cfg, joint_sel, problem, carry, snap0,
                              est_thrust_dot)
     qp0, _, _, _ = condense_from_prep(cfg, sched, joint_sel, problem, carry,

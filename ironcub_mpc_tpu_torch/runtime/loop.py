@@ -17,7 +17,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..core.config import MPCConfig, joint_selector
-from ..core.types import MPCCarry, RobotSnapshot, expand_lanes
+from ..core.types import (DebugInfo, MPCCarry, RobotSnapshot, expand_lanes,
+                          tree_map)
 from ..dynamics.kinodynamics import compute_snapshot
 from ..horizon.schedule import build_schedule
 from ..ops import admm
@@ -66,8 +67,8 @@ class TickTelemetry(NamedTuple):
     ext_wrench_sum: torch.Tensor
     # [] bool: carried-inverse recovery guard re-factorised this tick
     guard_fired: torch.Tensor = None
-    # per-block QP introspection of debug-log mode; always None (not ported)
-    debug: object = None
+    # per-block QP introspection of debug-log mode (None when it is off)
+    debug: DebugInfo = None
 
 
 class ClosedLoop:
@@ -180,7 +181,7 @@ class ClosedLoop:
             zmp=snap.zmp,
             on_ground=snap.on_ground,
             ext_wrench_sum=snap.ext_wrench_sum,
-            debug=None,
+            debug=out.debug,
         )
 
         s = self.plant.step(s, self.n_substeps)
@@ -188,19 +189,18 @@ class ClosedLoop:
                          base_lin_vel_filt=lp_lin, base_ang_vel_filt=lp_ang), tel
 
     def rollout(self, problem, carry: LoopCarry, n_ticks: int):
-        """``n_ticks`` ticks in a Python loop. Each tick's telemetry is
-        written into tensors [n_ticks, B, ...] on the device, allocated once
-        from the first tick's shapes; nothing is read back on the host."""
+        """``n_ticks`` ticks in a Python loop. Each tick's telemetry (the
+        debug-log triples included) is written into tensors [n_ticks, B, ...]
+        on the device, allocated once from the first tick's shapes; nothing
+        is read back on the host."""
         bufs = None
         for t in range(n_ticks):
             carry, tel = self.tick(problem, carry)
             if bufs is None:
-                bufs = [None if v is None else
-                        torch.empty((n_ticks,) + tuple(v.shape), dtype=v.dtype,
-                                    device=v.device) for v in tel]
-            for buf, v in zip(bufs, tel):
-                if buf is not None:
-                    buf[t] = v
+                bufs = tree_map(lambda v: torch.empty(
+                    (n_ticks,) + tuple(v.shape), dtype=v.dtype,
+                    device=v.device), tel)
+            tree_map(lambda buf, v: buf.__setitem__(t, v), bufs, tel)
         if bufs is None:
             raise ValueError("rollout needs n_ticks >= 1")
-        return carry, TickTelemetry(*bufs)
+        return carry, bufs

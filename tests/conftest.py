@@ -34,6 +34,8 @@ jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a CUDA card (skips without one)")
+    config.addinivalue_line(
+        "markers", "slow: long-running; tier-1 deselects it (-m 'not slow')")
 
 
 @pytest.fixture(scope="session")

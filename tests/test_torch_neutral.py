@@ -94,15 +94,16 @@ def _port_modules():
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, chip_smoke.py and the port's tools import
-    with JAX and the JAX package blocked."""
+    """Every module of the port, chip_smoke.py, the port's tools and the
+    card-only test files import with JAX and the JAX package blocked."""
     mods = _port_modules()
     for m in ("ops.kernels", "dynamics.kinodynamics", "dynamics.wrenches",
               "dynamics.model", "dynamics.urdf", "dynamics.urdf_export",
               "dynamics.ironcub_model", "runtime.trajectory", "runtime.loop",
               "runtime.flight", "runtime.checkpoint", "sim.jet_lstm",
               "sim.ekf", "sim.plant", "convert", "parallel", "parallel.mesh",
-              "parallel.monte_carlo"):
+              "parallel.monte_carlo", "ops.admm", "qp.assembly", "qp.mpc",
+              "qp.condensed"):
         assert f"ironcub_mpc_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib, runpy\n"
@@ -114,6 +115,9 @@ def test_port_never_imports_jax():
         "for tool in ('bench_segment_kernels_torch', "
         "'run_robustness_sweep_torch', 'run_mismatch_sweep_torch'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='not_main')\n"
+        "for card_test in ('kernels', 'flight', 'full'):\n"
+        "    runpy.run_path(f'tests/test_torch_{card_test}_gpu.py', "
+        "run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ironcub_mpc_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

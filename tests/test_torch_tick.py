@@ -68,6 +68,18 @@ def _t(a, batch=True):
     return t[None] if batch else t
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's eager PyTorch on one thread. With several test
+    processes sharing the cores (pytest-xdist), PyTorch's default of a
+    thread per core makes each of a tick's thousands of small ops wait for
+    threads that are not scheduled: about ten times slower."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _close(got, want, tol, what):
     """Max error normalised by the reference's largest magnitude (at least
     1), as tests/test_golden_qp.py measures it."""
