@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the multi-rate MPC on one CUDA card: the
 condensed tick on the recorded stream, the segment head-to-head, the
-full-space solver with debug-log mode and the condense modes, the
+full-space solver with debug-log mode and the condense modes, the parallel
+axes (pipelined tick, row-sharded solve, multi-process dry run), the
 closed-loop flight and the Monte-Carlo sweep.
 
     python3 chip_smoke.py
@@ -62,6 +63,23 @@ Phases (any failure exits non-zero):
              the four condense modes at batch 256 on the first recorded
              tick against the sequential chain, each timed at batch 1 and
              256. Under 90 s.
+5c. parallel  the parallel axes at full width: the four-stage pipelined
+             tick (parallel.pipeline_tick, four CUDA streams of the one
+             card) on the recorded stream at batch 256, 20 chained ticks
+             against 20 monolithic per-lane ticks (statuses equal but
+             SOLVED / SOLVED_INACCURATE flips within the 10x rule, commands,
+             final state and carries within phase 4's batch-1 tolerances),
+             both kernels launched in it, no host read-back, ms per tick
+             both ways, a profiled window (device time summed and as a
+             union of kernel intervals), the first 5 ticks against the
+             port's CPU pipeline on 8 lanes, 2 debug-log ticks at batch 64;
+             the row-sharded ADMM (parallel.solve_tp) over two gloo ranks
+             sharing the card on the first recorded tick's full-space QP
+             (588 variables x 512 rows) and on the dry run's 24 x 16 QP,
+             against one rank on the card and on the CPU (x within 1e-5 of
+             its largest entry), timed both ways; and
+             parallel.dryrun_multichip(2) with its 16,384-lane sweep.
+             Under 150 s.
 6. flight    the closed loop at full width (23-joint calibrated Mk3 model,
              LSTM+EKF jets, mission trajectories, flight solver settings):
              batch 1 through ``run_flight`` (2 s settle, 400 ticks) with
@@ -84,6 +102,10 @@ Phases (any failure exits non-zero):
              by lane-tick: statuses equal but SOLVED / SOLVED_INACCURATE
              flips whose residuals agree within a factor 10, errors within
              1e-4 m.
+
+``python3 chip_smoke.py --cards N`` runs only the parallel axes across N
+cards: the pipelined tick with stage i on card i % N against the monolithic
+tick on card 0, and dryrun_multichip(N) over nccl.
 
 Launch counters are zeroed just before each path is driven and read just
 after; every kernel of a path must have launched in it. Prints the card's
@@ -154,10 +176,11 @@ FS_CPU_LANES, FS_PROFILED, FS_DEBUG_TICKS = 4, 1, 5
 FS_MODES_BATCH, FS_MODE_REPS, FS_BUDGET_S = 256, 20, 90.0
 # closed-loop flight: 2 s at batch 1; the first 20 s of the mission at batch
 # 64 unless the whole script, the sweep phase after it included, would pass
-# SCRIPT_BUDGET_S
+# SCRIPT_BUDGET_S (620 s until the parallel phase came, before the flight,
+# with its ~85 s: the flight keeps its depth and the script its margin)
 FLIGHT_B1_S, FLIGHT_SETTLE_S = 2.0, 2.0
 FLIGHT_BATCH, FLIGHT_SLICE_S, WIND_STD_N = 64, 20.0, 2.0
-SCRIPT_BUDGET_S = 620.0
+SCRIPT_BUDGET_S = 700.0
 # the Monte-Carlo sweep: one level of SWEEP_r05.json at full width
 SWEEP_SCEN, SWEEP_TICKS, SWEEP_CHUNK, SWEEP_BUDGET_S = 1024, 200, 100, 90.0
 SWEEP_WIND_N, SWEEP_SEED = 5.0, 500      # the tool's seed int(w_std · 100)
@@ -558,17 +581,18 @@ def read_launches(K):
 
 
 def run_ticks(mpc, replay, problem, carry, settings, batch, n_ticks, jitter,
-              per_tick_sync=False, sync_check_tick=None):
-    """Chain ``n_ticks`` replay ticks; returns (carry, outputs on the host,
-    per-tick host times in ms). An output's DebugInfo comes along when the
-    config emits one. ``sync_check_tick`` runs that tick under
-    ``set_sync_debug_mode("error")``: any call that waits for the device
-    raises."""
+              per_tick_sync=False, sync_check_tick=None, tick=None):
+    """Chain ``n_ticks`` replay ticks of ``tick`` (``mpc.mpc_tick`` unless
+    given); returns (carry, outputs on the host, per-tick host times in
+    ms). An output's DebugInfo comes along when the config emits one.
+    ``sync_check_tick`` runs that tick under ``set_sync_debug_mode("error")``:
+    any call that waits for the device raises."""
     from ironcub_mpc_tpu_torch.core.types import expand_lanes
 
     dev = replay.est_td.device
     jit = None if jitter is None else torch.as_tensor(jitter, device=dev)
     c = expand_lanes(carry, batch)
+    tick = tick or mpc.mpc_tick
     outs, times = [], []
     for t in range(n_ticks):
         snap, est = replay.tick_inputs(t, batch, jit)
@@ -577,8 +601,8 @@ def run_ticks(mpc, replay, problem, carry, settings, batch, n_ticks, jitter,
             torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
         try:
-            c, out = mpc.mpc_tick(replay.cfg, replay.sched, replay.sel,
-                                  settings, problem, c, snap, est)
+            c, out = tick(replay.cfg, replay.sched, replay.sel, settings,
+                          problem, c, snap, est)
         finally:
             if t == sync_check_tick:
                 torch.cuda.set_sync_debug_mode("default")
@@ -592,7 +616,7 @@ def run_ticks(mpc, replay, problem, carry, settings, batch, n_ticks, jitter,
     for o in outs:
         h = {k: getattr(o, k).cpu().numpy() for k in
              ("joints_pos_ref", "throttle", "thrust_des", "final_state",
-              "status", "guard_fired")}
+              "status", "guard_fired", "pri_res", "dua_res")}
         if o.debug is not None:
             h["debug"] = {k: v.cpu().numpy()
                           for k, v in o.debug._asdict().items()}
@@ -832,11 +856,21 @@ def profile_window(run, n=10):
     top_host = sorted((ev for ev in events
                        if ev.device_type == torch.autograd.DeviceType.CPU),
                       key=lambda e: -e.self_cpu_time_total)[:8]
+    # the union of the kernels' intervals on the card's clock: below the
+    # sum of their times where kernels of several streams overlap
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    union_us, reach = 0.0, -float("inf")
+    for start, end in spans:
+        union_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
     return dict(
         ticks=n, wall_ms=wall,
         device_busy_ms=busy_us / 1e3 if on_card else "not measured",
         device_busy_share=(busy_us / 1e3 / wall if on_card
                            else "not measured"),
+        device_union_ms=union_us / 1e3 if spans else "not measured",
         device_kernels_per_tick=sum(ev.count for ev in on_card) / n,
         linalg_calls_per_tick=sum(ev.count for ev in events
                                   if ev.key.startswith("aten::linalg_")) / n,
@@ -1090,6 +1124,430 @@ def phase_full_space(K, dev, record):
     check(out["phase_s"] < FS_BUDGET_S,
           f"full_space: {out['phase_s']:.1f} s > {FS_BUDGET_S} s")
     record["full_space"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the parallel axes — the pipelined tick, the row-sharded solve and
+# the multi-process dry run
+# ---------------------------------------------------------------------------
+
+# the pipelined tick: batch 256 (4 micro-batches of 64), 20 chained ticks
+# each way, timed parent/pipeline/pipeline/parent; the first 5 against the
+# port's CPU pipeline on 8 lanes; 2 debug-log ticks at batch 64; 3 ticks
+# profiled each way
+PAR_BATCH, PAR_TICKS, PAR_CPU_LANES, PAR_CPU_TICKS = 256, 20, 8, 5
+PAR_DEBUG_BATCH, PAR_DEBUG_TICKS, PAR_PROFILED = 64, 2, 3
+# JAX's own bound between its pipelined and vmapped ticks
+# (tests/test_pp_pipeline.py), printed beside the port's
+JAX_PIPELINE_TOL = 1e-5
+# the row-sharded solve: two ranks on the one card against one. x is held
+# within TP_TOL of its largest entry: 1e-5 on the 24 x 16 QP; 5e-2 on the
+# full-space QP, where the fixed-rho iteration of solve_tp sits at its
+# float32 noise floor (its dual residual stalls at 200-400 from iteration 50
+# on, SOLVED_INACCURATE) and parts with the summation order: on the CPU
+# JAX's own kkt 2 against its kkt 1 by 3.5e-4, kkt 8 by 6.2e-4, the port's
+# kkt 2 against its kkt 1 by 1.8e-3 to 3.7e-3 and the port against JAX by
+# 4.0e-3; the card's kkt 2 against the CPU's kkt 1 by 1.37e-2 (PERF.md)
+TP_RANKS = 2
+TP_TOL = {"full_588x512": 5e-2, "dryrun_24x16": 1e-5}
+# the dry run at JAX's pod-scale lane count
+PAR_POD_LANES = 16384
+PAR_BUDGET_S = 150.0
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def hold_lanes(got, want, tol, what):
+    """Two chained runs' host outputs, lane by lane: statuses equal but
+    SOLVED / SOLVED_INACCURATE flips whose residuals agree within
+    FLIP_FACTOR; on the lanes whose statuses agree, the commands and the
+    final state within ``tol`` (final_state relative to its largest entry)
+    and a DebugInfo within 1e-4 of each field's largest entry. Returns the
+    worst errors, the largest error of every field normalised by its
+    largest entry (at least 1), and the flips as [tick, lane, primal a,
+    primal b, dual a, dual b]."""
+    worst = {k: 0.0 for k in tol}
+    normalised, flips = 0.0, []
+    for t, (g, c) in enumerate(zip(got, want)):
+        same = g["status"] == c["status"]
+        for lane in np.flatnonzero(~same).tolist():
+            pair = {int(g["status"][lane]), int(c["status"][lane])}
+            res = [float(v[lane]) for v in (g["pri_res"], c["pri_res"],
+                                            g["dua_res"], c["dua_res"])]
+            near = all(max(x, y) <= FLIP_FACTOR * min(x, y)
+                       for x, y in (res[:2], res[2:]))
+            check(pair == {1, 2} and near,
+                  f"{what} tick {t} lane {lane}: statuses {pair}, residuals "
+                  f"(primal, primal, dual, dual) {res}")
+            flips.append([t, lane] + res)
+        for k, lim in tol.items():
+            a = g[k][same].astype(np.float64)
+            b = c[k][same].astype(np.float64)
+            err = float(np.abs(a - b).max(initial=0.0))
+            scale = max(float(np.abs(b).max(initial=0.0)), 1.0)
+            normalised = max(normalised, err / scale)
+            if k == "final_state":
+                err /= scale
+            worst[k] = max(worst[k], err)
+            check(err <= lim, f"{what} tick {t}: {k} err {err:.3e} > {lim}")
+        for k, v in g.get("debug", {}).items():
+            ref = c["debug"][k][same]
+            err = float(np.abs(v[same] - ref).max(initial=0.0)) / max(
+                float(np.abs(ref).max(initial=0.0)), 1.0)
+            worst[f"debug.{k}"] = max(worst.get(f"debug.{k}", 0.0), err)
+            check(err <= 1e-4, f"{what} tick {t}: debug {k} err {err:.3e}")
+    return worst, normalised, flips
+
+
+def _tp_rank(rank, port, device, qp_path, out):
+    """One rank of the row-sharded solve on a (1, TP_RANKS) mesh over gloo,
+    on ``device``: every QP of ``qp_path`` solved once to warm up and once
+    timed."""
+    import os
+
+    import torch.distributed as dist
+
+    from ironcub_mpc_tpu_torch.parallel import make_mesh, multihost_init
+    from ironcub_mpc_tpu_torch.parallel.tp_admm import solve_tp
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(TP_RANKS))
+    multihost_init("gloo")
+    try:
+        mesh = make_mesh(n_scenario=1, n_kkt=TP_RANKS, device=device)
+        res = {}
+        for name, (qp, settings) in torch.load(
+                qp_path, weights_only=False).items():
+            qp = [t.to(mesh.device) for t in qp]
+            solve_tp(*qp, mesh, settings)
+            sync(mesh.device)
+            dist.barrier()
+            t0 = time.perf_counter()
+            sol = solve_tp(*qp, mesh, settings)
+            sync(mesh.device)
+            res[name] = dict(ms=1e3 * (time.perf_counter() - t0),
+                             **{k: v.cpu() for k, v in sol._asdict().items()})
+        torch.save(res, f"{out}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_problems(dev):
+    """The row-sharded solve's QPs: the first recorded tick's full-space QP
+    (588 variables, 512 rows, built by qp/assembly.py) and the dry run's
+    24 × 16 one, each with its settings, as one lane."""
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.qp import mpc
+
+    fr = full_replay(dev, qp_solver="full")
+    problem, carry = fr.configure(admm.ADMMSettings())
+    snap, est = fr.tick_inputs(0, 1)
+    g, A, lb, ub, _, _ = mpc._assemble(fr.cfg, fr.sched, fr.sel, problem,
+                                       carry, snap, est)
+    rng = np.random.default_rng(0)
+    n, m = 24, 16
+    M = rng.normal(size=(n, n))
+    small = [torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in
+             (M @ M.T + np.eye(n), rng.normal(size=(1, n)),
+              rng.normal(size=(m, n)), -np.ones((1, m)), np.ones((1, m)))]
+    return {"full_588x512": ([problem.H, g, A, lb, ub],
+                             admm.ADMMSettings(polish=False)),
+            "dryrun_24x16": (small, admm.ADMMSettings(max_iter=50,
+                                                      polish=False))}
+
+
+def pipelined_against_monolithic(K, replay, problem, carry, settings,
+                                 jitter, devices, what):
+    """PAR_TICKS chained pipelined ticks (stage i on ``devices[i]``) against
+    as many monolithic ticks on the inputs' device, after a warm-up, timed
+    in the order monolithic, pipelined, pipelined, monolithic (host clock,
+    every device synchronised): both kernels launched and no host read-back
+    in the pipelined ticks, every lane solved, the lanes held to each other
+    at phase 4's batch-1 tolerances with flips inside the 10x rule, and the
+    carries after the last tick. Returns the record and the pipelined
+    ticks' host outputs."""
+    from ironcub_mpc_tpu_torch.parallel import pipeline_tick
+    from ironcub_mpc_tpu_torch.qp import condensed
+    from ironcub_mpc_tpu_torch.qp import mpc
+
+    tight = dict(joints_pos_ref=1e-4, throttle=1e-3, thrust_des=1e-3,
+                 final_state=2e-5)
+
+    def piped(*args):
+        return pipeline_tick(*args, devices=devices)
+
+    def chain(tick, n):
+        t0 = time.perf_counter()
+        c, host, _ = run_ticks(mpc, replay, problem, carry, settings,
+                               PAR_BATCH, n, jitter, tick=tick)
+        for d in set(devices):
+            sync(d)
+        return c, host, 1e3 * (time.perf_counter() - t0) / n
+
+    chain(mpc.mpc_tick, 2)                 # warm-up: streams, allocator
+    chain(piped, 2)
+    _, mono, mono_ms = chain(mpc.mpc_tick, PAR_TICKS)
+    K.reset_launches()
+    condensed.batch_any.syncs = 0
+    pipe_carry, pipe, pipe_ms = chain(piped, PAR_TICKS)
+    launches = read_launches(K)
+    syncs = condensed.batch_any.syncs
+    for k, n in launches.items():
+        check(n > 0, f"{what}: {k} was never launched in the pipelined "
+              "ticks")
+    check(syncs == 0, f"{what}: {syncs} host read-backs in the pipelined "
+          "ticks")
+    _, _, pipe_ms_b = chain(piped, PAR_TICKS)
+    mono_carry, _, mono_ms_b = chain(mpc.mpc_tick, PAR_TICKS)
+    solved = {"pipelined": check_solved(pipe, f"{what} pipelined"),
+              "monolithic": check_solved(mono, f"{what} monolithic")}
+    worst, normalised, flips = hold_lanes(pipe, mono, tight,
+                                          f"{what} pipelined vs monolithic")
+    # the carries after the last tick, on the lanes that never flipped
+    never = np.ones(PAR_BATCH, bool)
+    for t, lane, *_ in flips:
+        never[lane] = False
+    carry_err = {}
+    for k in ("joints_pos_ref", "throttle_cmd", "thrust_des", "warm_x",
+              "kinv", "rho_scalar"):
+        a = getattr(pipe_carry, k).double().cpu().numpy()[never]
+        b = getattr(mono_carry, k).double().cpu().numpy()[never]
+        carry_err[k] = float(np.abs(a - b).max(initial=0.0)) / max(
+            float(np.abs(b).max(initial=0.0)), 1.0)
+    for k in ("throttle_counter", "pos_traj_idx", "ref_counter",
+              "alpha_traj_idx"):
+        check(torch.equal(getattr(pipe_carry, k), getattr(mono_carry, k)),
+              f"{what}: carry {k} differs from the monolithic ticks")
+    for k, lim in (("joints_pos_ref", tight["joints_pos_ref"]),
+                   ("throttle_cmd", tight["throttle"]),
+                   ("thrust_des", tight["thrust_des"])):
+        check(carry_err[k] <= lim,
+              f"{what}: carry {k} err {carry_err[k]:.3e} > {lim}")
+    rec = dict(
+        batch=PAR_BATCH, micro_batch=PAR_BATCH // len(devices),
+        ticks=PAR_TICKS, stages_on=[str(d) for d in devices],
+        ms_per_tick={"monolithic": [mono_ms, mono_ms_b],
+                     "pipelined": [pipe_ms, pipe_ms_b]},
+        launches=launches,
+        launches_per_tick={k: n / PAR_TICKS for k, n in launches.items()},
+        host_readbacks_per_tick=syncs / PAR_TICKS, status_counts=solved,
+        max_err_vs_monolithic=worst, carry_err_vs_monolithic=carry_err,
+        max_normalised_err=normalised, jax_pipeline_tol=JAX_PIPELINE_TOL,
+        flips=flips)
+    print(f"[{what}] pipelined tick, batch {PAR_BATCH} in {len(devices)} "
+          f"micro-batches, stages on {rec['stages_on']}: {pipe_ms:.3f} / "
+          f"{pipe_ms_b:.3f} ms/tick against {mono_ms:.3f} / {mono_ms_b:.3f} "
+          f"monolithic (host clock, synchronised, {PAR_TICKS} ticks each, "
+          f"order monolithic, pipelined, pipelined, monolithic); host "
+          f"read-backs/tick {syncs / PAR_TICKS:.2f}, launches/tick "
+          f"{rec['launches_per_tick']}")
+    print(f"[{what}] pipelined vs monolithic: statuses {solved}, "
+          f"{len(flips)} SOLVED/SOLVED_INACCURATE flips {flips}, max err "
+          f"{worst}, carries {carry_err}; largest normalised error "
+          f"{normalised:.3e} (JAX's pipelined vs vmapped bound "
+          f"{JAX_PIPELINE_TOL:g})")
+    return rec, pipe
+
+
+def phase_parallel(K, dev, record):
+    """The pipelined tick against the monolithic one, the row-sharded solve
+    over two ranks of the one card against one, and dryrun_multichip(2)."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.parallel import N_STAGES, pipeline_tick
+    from ironcub_mpc_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ironcub_mpc_tpu_torch.parallel.tp_admm import solve_tp
+    from ironcub_mpc_tpu_torch.qp import mpc
+
+    t_phase = time.perf_counter()
+    out = {}
+    # --- a. the pipelined tick -------------------------------------------
+    settings = admm.ADMMSettings(**BENCH)
+    check(not settings.batch_guard and settings.kernel_mode == "auto",
+          "parallel: the pipelined tick takes per-lane decisions and kernels")
+    tight = dict(joints_pos_ref=1e-4, throttle=1e-3, thrust_des=1e-3,
+                 final_state=2e-5)
+    loose = dict(tight, throttle=0.1, final_state=1e-2)
+    replay = full_replay(dev)
+    replay_cpu = full_replay("cpu")
+    problem, carry = replay.configure(settings)
+    nu = problem.H_u.shape[-1]
+    check(K._pad_to(nu) == P, f"parallel: nU {nu} does not pad to {P}")
+    jitter = (0.1 * np.random.default_rng(0).standard_normal((PAR_BATCH, 6))
+              ).astype(np.float32)
+
+    out["pipeline"], pipe = pipelined_against_monolithic(
+        K, replay, problem, carry, settings, jitter, [dev] * N_STAGES,
+        "parallel")
+
+    def chain(tick, n, rp, pr, ca, batch, jit):
+        return run_ticks(mpc, rp, pr, ca, settings, batch, n, jit,
+                         tick=tick)[1]
+
+    def piped(*args):
+        return pipeline_tick(*args, devices=[dev] * N_STAGES)
+
+    # the port's CPU pipeline on the first lanes
+    problem_c, carry_c = replay_cpu.configure(settings)
+    cpu = chain(pipeline_tick, PAR_CPU_TICKS, replay_cpu, problem_c, carry_c,
+                PAR_CPU_LANES, jitter[:PAR_CPU_LANES])
+    cpu_worst, _, cpu_flips = hold_lanes(
+        lanes_of(pipe[:PAR_CPU_TICKS], PAR_CPU_LANES), cpu, loose,
+        "parallel pipelined card vs CPU")
+    # debug-log mode
+    rd = full_replay(dev, enable_debug_log_mode=True)
+    pd, cd = rd.configure(settings)
+    dbg = [chain(f, PAR_DEBUG_TICKS, rd, pd, cd, PAR_DEBUG_BATCH,
+                 jitter[:PAR_DEBUG_BATCH]) for f in (piped, mpc.mpc_tick)]
+    check_debug(dbg[0], "parallel debug-log pipelined")
+    dbg_worst, _, dbg_flips = hold_lanes(*dbg, tight, "parallel debug-log")
+    prof = {name: profile_window(lambda n, f=f: chain(
+        f, n, replay, problem, carry, PAR_BATCH, jitter), n=PAR_PROFILED)
+            for name, f in (("pipelined", piped),
+                            ("monolithic", mpc.mpc_tick))}
+    out["pipeline"].update(max_err_vs_cpu=cpu_worst, cpu_flips=cpu_flips,
+                           debug_max_err=dbg_worst, debug_flips=dbg_flips,
+                           profile=prof)
+    print(f"[parallel] card vs CPU pipeline ({PAR_CPU_LANES} lanes, "
+          f"{PAR_CPU_TICKS} ticks) {cpu_worst}, flips {cpu_flips}; "
+          f"debug-log {dbg_worst}, flips {dbg_flips}")
+    for name, p in prof.items():
+        # the profiler slows the host many times over (most for the
+        # pipeline's streams and events), so the busy share is taken
+        # against the unprofiled ms a tick of the same run
+        ms = out["pipeline"]["ms_per_tick"][name]
+        busy = p["device_busy_ms"]
+        p["busy_share_unprofiled"] = (
+            [busy / p["ticks"] / m for m in ms] if isinstance(busy, float)
+            else "not measured")
+        print(f"[parallel] {name}: profiled {p['ticks']} ticks: device busy "
+              f"{busy} ms summed, {p['device_union_ms']} ms as a union of "
+              f"intervals, of {p['wall_ms']:.3f} ms wall under the profiler; "
+              f"busy share against the unprofiled ms/tick "
+              f"{p['busy_share_unprofiled']}; "
+              f"{p['device_kernels_per_tick']:.1f} device kernels/tick, "
+              f"kernels {p['kernels']}")
+
+    # --- b. the row-sharded solve over two ranks of the one card --------
+    qps = tp_problems(dev)
+    check(tuple(qps["full_588x512"][0][2].shape) == (1, 512, 588),
+          f"parallel: the full-space QP is {qps['full_588x512'][0][2].shape}")
+    with tempfile.TemporaryDirectory() as td:
+        path, res_path = f"{td}/qps.pt", f"{td}/tp"
+        torch.save({k: ([t.cpu() for t in qp], s)
+                    for k, (qp, s) in qps.items()}, path)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.spawn(_tp_rank, args=(port, str(dev), path, res_path),
+                 nprocs=TP_RANKS, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{res_path}.rank{r}", weights_only=True)
+                 for r in range(TP_RANKS)]
+    out["tp"] = dict(ranks=TP_RANKS, backend="gloo", spawn_and_solve_s=spawn_s)
+    for name, (qp, s) in qps.items():
+        sharded = ranks[0][name]
+        for other in ranks[1:]:
+            for k in ("x", "y", "z", "status"):
+                check(torch.equal(other[name][k], sharded[k]),
+                      f"parallel tp {name}: {k} differs between the ranks")
+        solve_tp(*qp, None, s)
+        sync(dev)
+        t0 = time.perf_counter()
+        one = solve_tp(*qp, None, s)
+        sync(dev)
+        one_ms = 1e3 * (time.perf_counter() - t0)
+        cpu_sol = solve_tp(*[t.cpu() for t in qp], None, s)
+        m = qp[2].shape[-2]
+        check(tuple(sharded["y"].shape) == tuple(sharded["z"].shape)
+              == (1, m), f"parallel tp {name}: y {sharded['y'].shape}")
+        errs = {}
+        for ref_name, ref in (("kkt1_card", one), ("kkt1_cpu", cpu_sol)):
+            host = {k: [getattr(ref, k).cpu().numpy()]
+                    for k in ("status", "pri_res", "dua_res")}
+            flips = hold_lanes(
+                [{k: sharded[k].numpy() for k in host}],
+                [{k: v[0] for k, v in host.items()}], {},
+                f"parallel tp {name} against {ref_name}")[2]
+            x_ref = ref.x.cpu()
+            errs[ref_name] = float((sharded["x"] - x_ref).abs().max()) / max(
+                float(x_ref.abs().max()), 1e-30)
+            check(errs[ref_name] <= TP_TOL[name],
+                  f"parallel tp {name}: x against {ref_name} "
+                  f"{errs[ref_name]:.3e} of its largest entry > "
+                  f"{TP_TOL[name]}")
+            errs[f"{ref_name}_flips"] = flips
+            check(bool(torch.isfinite(sharded["x"]).all()),
+                  f"parallel tp {name}: non-finite x")
+        out["tp"][name] = dict(
+            n=int(qp[0].shape[-1]), m=int(m), max_iter=s.max_iter,
+            status=int(sharded["status"]), pri_res=float(sharded["pri_res"]),
+            dua_res=float(sharded["dua_res"]), x_err=errs,
+            ms={f"kkt{TP_RANKS}_gloo": sharded["ms"], "kkt1": one_ms})
+        print(f"[parallel] tp {name}: status {int(sharded['status'])}, x "
+              f"against kkt 1 on the card / on the CPU {errs['kkt1_card']:.3e}"
+              f" / {errs['kkt1_cpu']:.3e} of its largest entry; one solve "
+              f"({s.max_iter} iterations) {sharded['ms']:.2f} ms over "
+              f"{TP_RANKS} gloo ranks (each all-reduce staged through the "
+              f"host) against {one_ms:.2f} ms on one rank")
+
+    # --- c. the dry run -----------------------------------------------------
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device=dev, pod_lanes=PAR_POD_LANES)
+    dry["wall_s"] = time.perf_counter() - t0
+    for k, n in dry["flagship"]["launches"].items():
+        check(n > 0, f"parallel dryrun: {k} was never launched in the "
+              "flagship sweep")
+    check(dry["mesh"] == {"scenario": 1, "kkt": 2} and "tp" in dry
+          and "pipeline" in dry, f"parallel dryrun: {dry}")
+    out["dryrun"] = dry
+    print(f"[parallel] dryrun_multichip(2): {dry}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[parallel] the phase took {out['phase_s']:.1f} s")
+    check(out["phase_s"] < PAR_BUDGET_S,
+          f"parallel: {out['phase_s']:.1f} s > {PAR_BUDGET_S} s")
+    record["parallel"] = out
+    return out
+
+
+def phase_parallel_cards(K, n_cards, record):
+    """The parallel axes across ``n_cards`` cards (``--cards N``): the
+    pipelined tick with stage i on card i % N (peer copies between the
+    stages' streams) against the monolithic tick on card 0, and
+    dryrun_multichip(N) with a card a rank (nccl)."""
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.parallel import N_STAGES
+    from ironcub_mpc_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    check(torch.cuda.device_count() >= n_cards,
+          f"cards: {torch.cuda.device_count()} visible, {n_cards} asked for")
+    settings = admm.ADMMSettings(**BENCH)
+    replay = full_replay(torch.device("cuda", 0))
+    problem, carry = replay.configure(settings)
+    jitter = (0.1 * np.random.default_rng(0).standard_normal((PAR_BATCH, 6))
+              ).astype(np.float32)
+    out, _ = pipelined_against_monolithic(
+        K, replay, problem, carry, settings, jitter,
+        [torch.device("cuda", i % n_cards) for i in range(N_STAGES)],
+        "cards")
+    out["cards"] = n_cards
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(n_cards, pod_lanes=PAR_POD_LANES)
+    dry["wall_s"] = time.perf_counter() - t0
+    for k, n in dry["flagship"]["launches"].items():
+        check(n > 0, f"cards dryrun: {k} was never launched")
+    out["dryrun"] = dry
+    print(f"[cards] dryrun_multichip({n_cards}): {dry}")
+    record["cards"] = out
     return out
 
 
@@ -1566,6 +2024,17 @@ def main():
     t0 = time.perf_counter()
     reports = K.build()
     record["build_s"] = time.perf_counter() - t0
+    if "--cards" in sys.argv[1:]:
+        # the parallel axes across several cards, and nothing else
+        n = int(sys.argv[sys.argv.index("--cards") + 1])
+        print(card)
+        phase_parallel_cards(K, n, record)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / f"chip_smoke_cards{n}.json").write_text(
+            json.dumps(record, indent=1))
+        print(json.dumps({"ok": True, "cards": n}))
+        return 0
     print(f"[build] nvcc {record['build_s']:.2f} s for "
           f"{sorted(reports) or 'nothing (already built)'}")
     for name, rep in reports.items():
@@ -1578,6 +2047,7 @@ def main():
     main_runs = phase_main(K, dev, record)
     long_runs = phase_long_horizon(K, dev, record)
     full_space = phase_full_space(K, dev, record)
+    parallel = phase_parallel(K, dev, record)
     flights, start = phase_flight(K, dev, record)
     sweep = phase_sweep(K, dev, record, *start)
     record["total_s"] = time.perf_counter() - T_START
@@ -1599,7 +2069,7 @@ def main():
     paths = [seg] + list(main_runs.values()) + list(long_runs.values()) \
         + [v for v in full_space.values()
            if isinstance(v, dict) and "launches" in v] \
-        + list(flights.values()) + [sweep]
+        + [parallel["pipeline"]] + list(flights.values()) + [sweep]
     line = []
     for name, sel in pick.items():
         r = next(r for r in rows if r["name"] == name

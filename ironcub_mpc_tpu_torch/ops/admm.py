@@ -233,15 +233,19 @@ def rho_vector(l, u, settings: ADMMSettings, rho_scalar=None):
     return torch.where(eq, rho * settings.rho_eq_scale, rho)
 
 
-def factorize(P, A, rho_vec, sigma):
-    """Cholesky of the reduced KKT matrix K = P + σI + AᵀρA, symmetrised
-    first as ``jnp.linalg.cholesky`` does; a lane where K is not positive
-    definite gets NaN in the lower triangle, as XLA gives."""
-    n = P.shape[-1]
-    K = P + sigma * torch.eye(n, dtype=P.dtype, device=P.device)
-    K = K + A.mT @ (rho_vec[..., :, None] * A)
+def cholesky(K):
+    """Lower Cholesky factor of K, symmetrised first as
+    ``jnp.linalg.cholesky`` does; a lane where K is not positive definite
+    gets NaN in the lower triangle, as XLA gives."""
     L, info = torch.linalg.cholesky_ex((K + K.mT) / 2)
     return _nan_where_failed(L, info, torch.full_like(L, float("nan")).tril())
+
+
+def factorize(P, A, rho_vec, sigma):
+    """Cholesky of the reduced KKT matrix K = P + σI + AᵀρA."""
+    n = P.shape[-1]
+    K = P + sigma * torch.eye(n, dtype=P.dtype, device=P.device)
+    return cholesky(K + A.mT @ (rho_vec[..., :, None] * A))
 
 
 def prepare(P, q, A, l, u, settings: ADMMSettings = ADMMSettings(),

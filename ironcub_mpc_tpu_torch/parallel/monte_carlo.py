@@ -193,18 +193,31 @@ def _sweep_tick(loop: ClosedLoop, problem, carry: LoopCarry, acc: _Acc,
 
 
 def _ckpt_path(checkpoint_dir, mesh: Mesh | None) -> Path:
-    world = 1 if mesh is None else mesh.world_size
-    name = ("sweep_state.pt" if world == 1
-            else f"sweep_state.rank{mesh.rank}-of-{world}.pt")
+    """One file per scenario slice: the ranks of a kkt group run the same
+    lanes and share it."""
+    parts = 1 if mesh is None else mesh.n_scenario
+    name = ("sweep_state.pt" if parts == 1
+            else f"sweep_state.rank{mesh.scenario_index}-of-{parts}.pt")
     return Path(checkpoint_dir) / name
+
+
+def _kkt_barrier(mesh: Mesh | None):
+    """Wait for the other ranks of this rank's kkt group, which share its
+    checkpoint file: kkt coordinate 0 alone writes it, so its replicas
+    read it only once that rank has written, and it writes only once they
+    have read."""
+    if mesh is not None and mesh.kkt_group is not None:
+        dist.barrier(group=mesh.kkt_group)
 
 
 def _reduce(mesh: Mesh | None, acc: _Acc, n: int, n_ticks: int,
             scen: ScenarioConfig) -> SweepResult:
-    """The sweep's statistics over every rank: sums and maxima with
-    ``all_reduce``, the per-lane vectors with ``all_gather``, solved_frac as
-    the mean over ranks of each rank's mean (JAX's ``pmean``)."""
-    group = None if mesh is None else mesh.group
+    """The sweep's statistics over the scenario axis (the ranks that share
+    this rank's kkt coordinate; the replicas of a kkt group count once):
+    sums and maxima with ``all_reduce``, the per-lane vectors with
+    ``all_gather``, solved_frac as the mean over scenario ranks of each
+    one's mean (JAX's ``pmean``)."""
+    group = None if mesh is None else mesh.scenario_group
     max_err = acc.max_err
     failed = ~torch.isfinite(max_err) | (max_err > scen.com_err_fail)
     healthy = ~failed
@@ -222,7 +235,7 @@ def _reduce(mesh: Mesh | None, acc: _Acc, n: int, n_ticks: int,
     lanes = [max_err, acc.any_bad.to(torch.uint8)]
     world = 1
     if group is not None:
-        world = mesh.world_size
+        world = mesh.n_scenario
         dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
         dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=group)
         dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=group)
@@ -268,8 +281,9 @@ def run_sweep(loop: ClosedLoop, problem, batched_carry: LoopCarry,
     ``chunk_ticks`` splits the rollout into chunks. ``checkpoint_dir``
     persists (this rank's carry, the accumulators, the tick cursor and the
     plant's sensor-noise generator) after every chunk to
-    ``checkpoint_dir/sweep_state.pt`` (one file per rank on a mesh of
-    several); calling run_sweep again with the same directory resumes from
+    ``checkpoint_dir/sweep_state.pt`` (one file per scenario slice on a
+    mesh of several, written by the slice's kkt coordinate 0); calling
+    run_sweep again with the same directory resumes from
     the last completed chunk and gives the result of an uninterrupted run.
 
     ``on_tick``, if given, is called after every tick with this rank's
@@ -288,12 +302,16 @@ def run_sweep(loop: ClosedLoop, problem, batched_carry: LoopCarry,
     path = None
     if checkpoint_dir is not None:
         path = _ckpt_path(checkpoint_dir, mesh)
+        _kkt_barrier(mesh)
         if path.exists():
             flat = checkpoint.read(path)
             carry = checkpoint.unflatten(flat, "carry", carry)
             acc = checkpoint.unflatten(flat, "acc", acc)
             done = int(flat["done"])
             loop.plant.set_noise_state(flat[checkpoint.NOISE_KEY])
+        _kkt_barrier(mesh)
+        if mesh is not None and mesh.kkt_index:
+            path = None
     while done < n_ticks:
         length = min(chunk, n_ticks - done)
         for _ in range(length):

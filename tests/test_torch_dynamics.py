@@ -43,6 +43,10 @@ from ironcub_mpc_tpu_torch.dynamics import urdf_export as texport
 from ironcub_mpc_tpu_torch.dynamics import wrenches as twrenches
 from ironcub_mpc_tpu_torch.ops import so3 as tso3
 
+from test_torch_tick import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ROOT = Path(__file__).resolve().parents[1]
 JETS = RobotConfig().jets_list
 SOLES = ("l_sole", "r_sole")

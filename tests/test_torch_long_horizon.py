@@ -34,7 +34,10 @@ from ironcub_mpc_tpu_torch.runtime.replay import load_flight_replay as tload
 
 from test_torch_kernels_gpu import (ALPHA, SIGMA, _segment_inputs,
                                     _woodbury_inputs)
-from test_torch_tick import BENCH, _check_tick, _run_both
+from test_torch_tick import (BENCH, _check_tick, _run_both,  # noqa: F401
+                             one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LONG_HORIZON = dict(control_horizon=13, use_joint_position_constraint=True)
 

@@ -35,6 +35,10 @@ from ironcub_mpc_tpu_torch.runtime import flight as tflight
 from ironcub_mpc_tpu_torch.runtime import loop as tloop
 from ironcub_mpc_tpu_torch.runtime import trajectory as ttraj
 
+from test_torch_tick import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 N_TICKS = 20
 SETTLE_S = 0.3
 CHANNELS = {k: np.zeros((30, 3)) for k in

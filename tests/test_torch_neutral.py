@@ -102,8 +102,9 @@ def test_port_never_imports_jax():
               "dynamics.ironcub_model", "runtime.trajectory", "runtime.loop",
               "runtime.flight", "runtime.checkpoint", "sim.jet_lstm",
               "sim.ekf", "sim.plant", "convert", "parallel", "parallel.mesh",
-              "parallel.monte_carlo", "ops.admm", "qp.assembly", "qp.mpc",
-              "qp.condensed"):
+              "parallel.monte_carlo", "parallel.tp_admm",
+              "parallel.pp_pipeline", "parallel.dryrun", "ops.admm",
+              "qp.assembly", "qp.mpc", "qp.condensed"):
         assert f"ironcub_mpc_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib, runpy\n"
@@ -115,7 +116,7 @@ def test_port_never_imports_jax():
         "for tool in ('bench_segment_kernels_torch', "
         "'run_robustness_sweep_torch', 'run_mismatch_sweep_torch'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='not_main')\n"
-        "for card_test in ('kernels', 'flight', 'full'):\n"
+        "for card_test in ('kernels', 'flight', 'full', 'parallel'):\n"
         "    runpy.run_path(f'tests/test_torch_{card_test}_gpu.py', "
         "run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

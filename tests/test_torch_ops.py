@@ -18,6 +18,10 @@ from ironcub_mpc_tpu.ops import so3 as jso3
 from ironcub_mpc_tpu_torch.ops import jet_model as tjm
 from ironcub_mpc_tpu_torch.ops import so3 as tso3
 
+from test_torch_tick import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 # float32 elementwise maths on both sides; differences are last-bit rounding
 # of sin/cos/atan2 between XLA's and PyTorch's CPU kernels
 ATOL = 2e-6

@@ -38,6 +38,10 @@ from ironcub_mpc_tpu_torch.sim.plant import Plant as TPlant
 from ironcub_mpc_tpu_torch.sim.plant import PlantParams as TPlantParams
 from ironcub_mpc_tpu_torch.sim.plant import PlantState as TPlantState
 
+from test_torch_tick import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ROOT = Path(__file__).resolve().parents[1]
 WEIGHTS = str(ROOT / "data/jet_lstm_weights.npz")
 DT = 0.001

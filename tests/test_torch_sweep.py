@@ -58,6 +58,10 @@ from ironcub_mpc_tpu_torch.runtime import checkpoint
 from ironcub_mpc_tpu_torch.runtime.loop import ClosedLoop
 from ironcub_mpc_tpu_torch.sim.plant import Plant
 
+from test_torch_tick import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 N_LANES, N_TICKS = 8, 4
 COM_TOL = 1e-4
 CHANNELS = {k: np.zeros((30, 3)) for k in
@@ -447,10 +451,11 @@ def test_recovery_settings_and_mesh(monkeypatch):
     assert ScenarioConfig() == ScenarioConfig(
         **dataclasses.asdict(jmc.ScenarioConfig()))
     mesh = make_mesh(device="cpu")
-    assert (mesh.world_size, mesh.rank, mesh.group) == (1, 0, None)
+    assert (mesh.world_size, mesh.rank, mesh.scenario_group,
+            mesh.kkt_group) == (1, 0, None, None)
     assert scenario_shard(mesh, 8) == slice(0, 8)
     assert scenario_shard(None, 3) == slice(0, 3)
-    with pytest.raises(NotImplementedError, match="tp_admm"):
+    with pytest.raises(ValueError, match="world"):
         make_mesh(n_kkt=2, device="cpu")
     with pytest.raises(ValueError, match="world"):
         make_mesh(n_scenario=2, device="cpu")

@@ -80,6 +80,9 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
 def _close(got, want, tol, what):
     """Max error normalised by the reference's largest magnitude (at least
     1), as tests/test_golden_qp.py measures it."""
