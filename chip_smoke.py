@@ -2,7 +2,8 @@
 """Drive the PyTorch port of the multi-rate MPC on one CUDA card: the
 condensed tick on the recorded stream, the segment head-to-head, the
 full-space solver with debug-log mode and the condense modes, the parallel
-axes (pipelined tick, row-sharded solve, multi-process dry run), the
+axes (pipelined tick, row-sharded solve, multi-process dry run), the host
+side (native runtime, real-time driver, telemetry, host MuJoCo), the
 closed-loop flight and the Monte-Carlo sweep.
 
     python3 chip_smoke.py
@@ -80,6 +81,22 @@ Phases (any failure exits non-zero):
              its largest entry), timed both ways; and
              parallel.dryrun_multichip(2) with its 16,384-lane sweep.
              Under 150 s.
+5d. host_runtime  the host side: the native runtime library built by g++
+             (native/ironcub_rt.cc) and its ring's concurrent stress
+             (1024 × 8, 2e6 records); the real-time driver
+             (examples/realtime_driver_torch.py, hover tick at batch 1) on
+             the card: a 20-tick probe, 400 ticks paced at twice the probe's
+             tick (at least 50 ms: every record solved, none dropped, at
+             most 5 % overruns), 400 ticks at the reference's 5 ms (mean,
+             p99, overruns and stalls reported, no bound), 10 profiled
+             ticks (one host wait and one device-to-host copy a tick, both
+             kernels launched); a device_trace of 2 ticks naming both
+             kernels; solves_per_second of the batch-256 replay tick; 20
+             closed-loop ticks saved to .mat and read back; where MuJoCo is
+             installed, HostMujocoSim on the card (CoM within 1e-4 m of
+             MuJoCo's, 40 closed-loop ticks solved) and compare_plants over
+             300 ticks within tests/test_plant_divergence.py's bounds.
+             Under 120 s.
 6. flight    the closed loop at full width (23-joint calibrated Mk3 model,
              LSTM+EKF jets, mission trajectories, flight solver settings):
              batch 1 through ``run_flight`` (2 s settle, 400 ticks) with
@@ -118,6 +135,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -174,13 +193,22 @@ WOODBURY_GENERAL = [(P2, 132, 0, (1, 64), (0, 1)), (384, 288, 208, (1,), (1,)),
 FS_TICKS_B1, FS_TICKS_BATCH, FS_BATCH, FS_CHECK = 20, 10, 64, 5
 FS_CPU_LANES, FS_PROFILED, FS_DEBUG_TICKS = 4, 1, 5
 FS_MODES_BATCH, FS_MODE_REPS, FS_BUDGET_S = 256, 20, 90.0
+# the host side: the real-time driver's probe and paced runs (at twice the
+# probe's tick, at least 50 ms, at most 5 % overruns; then the reference's
+# 5 ms, unbounded), solves/s calls, telemetry ticks, the host-MuJoCo part's
+# closed-loop and cross-engine ticks, and the phase's cap
+RT_PROBE, RT_TICKS, RT_MIN_PERIOD_S, RT_REF_PERIOD_S = 20, 400, 0.05, 0.005
+RT_OVERRUN_FRAC, RT_SYNC_TICKS, SPS_ITERS, TEL_TICKS = 0.05, 40, 10, 20
+HM_TICKS, HM_COMPARE_TICKS, HOST_BUDGET_S = 40, 300, 120.0
 # closed-loop flight: 2 s at batch 1; the first 20 s of the mission at batch
 # 64 unless the whole script, the sweep phase after it included, would pass
 # SCRIPT_BUDGET_S (620 s until the parallel phase came, before the flight,
-# with its ~85 s: the flight keeps its depth and the script its margin)
+# with its ~85 s; 700 s until the host_runtime phase came, also before the
+# flight: its time comes out of the batch-64 slice, so the script aims at
+# about 600 s, half its 1200 s time limit)
 FLIGHT_B1_S, FLIGHT_SETTLE_S = 2.0, 2.0
 FLIGHT_BATCH, FLIGHT_SLICE_S, WIND_STD_N = 64, 20.0, 2.0
-SCRIPT_BUDGET_S = 700.0
+SCRIPT_BUDGET_S = 670.0
 # the Monte-Carlo sweep: one level of SWEEP_r05.json at full width
 SWEEP_SCEN, SWEEP_TICKS, SWEEP_CHUNK, SWEEP_BUDGET_S = 1024, 200, 100, 90.0
 SWEEP_WIND_N, SWEEP_SEED = 5.0, 500      # the tool's seed int(w_std · 100)
@@ -830,7 +858,9 @@ def profile_window(run, n=10):
                              ProfilerActivity.CUDA]) as prof:
         run(n)
         torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0)
+        # the window's wall ends here: the profiler's own post-processing on
+        # leaving the block takes seconds
+        wall = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
     on_card = [ev for ev in events
                if ev.device_type == torch.autograd.DeviceType.CUDA]
@@ -852,6 +882,9 @@ def profile_window(run, n=10):
     waits = {ev.key: ev.count for ev in events
              if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                            "aten::item", "cudaMemcpyAsync")}
+    # the copies on the card, by direction and kind of host memory
+    copies = {ev.key: ev.count for ev in on_card
+              if ev.key.startswith("Memcpy")}
     top_dev = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
     top_host = sorted((ev for ev in events
                        if ev.device_type == torch.autograd.DeviceType.CPU),
@@ -874,7 +907,7 @@ def profile_window(run, n=10):
         device_kernels_per_tick=sum(ev.count for ev in on_card) / n,
         linalg_calls_per_tick=sum(ev.count for ev in events
                                   if ev.key.startswith("aten::linalg_")) / n,
-        kernels=ours, host_waits=waits,
+        kernels=ours, host_waits=waits, copies=copies,
         top_device=[(ev.key[:60], ev.count, ev.self_device_time_total / 1e3)
                     for ev in top_dev],
         top_host=[(ev.key[:60], ev.count, ev.self_cpu_time_total / 1e3)
@@ -1552,6 +1585,293 @@ def phase_parallel_cards(K, n_cards, record):
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: the host side (native runtime, real-time driver, profiling,
+# telemetry, host MuJoCo)
+# ---------------------------------------------------------------------------
+
+# the bounds of tests/test_plant_divergence.py on the cross-engine run
+PLANT_DIV_BOUNDS = dict(com_div_max_m=0.06, rpy_div_max_deg=8.0,
+                        base_div_max_m=0.09, thrust_div_max_n=1.5)
+
+
+def driver_syncs(tick, n):
+    """Calls that make the host wait for the card in ``n`` driver ticks:
+    each is one warning under ``set_sync_debug_mode("warn")``. Returns
+    their number a tick and, by tick, where they were made."""
+    import warnings
+
+    where = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for i in range(n):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                tick()
+            calls = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                     if "called a synchronizing" in str(w.message)]
+            if calls:
+                where[i] = calls
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum(len(c) for c in where.values()) / n, where
+
+
+def host_mujoco(dev, out):
+    """HostMujocoSim on the card: the snapshot's CoM against MuJoCo's, 40
+    closed-loop ticks, and compare_plants over 300 ticks within the bounds
+    of tests/test_plant_divergence.py."""
+    import mujoco
+
+    from ironcub_mpc_tpu_torch.core.config import (MPCConfig, RobotConfig,
+                                                   SimConfig, joint_selector)
+    from ironcub_mpc_tpu_torch.dynamics import KinDyn, build_ironcub_model
+    from ironcub_mpc_tpu_torch.horizon.schedule import build_schedule
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.qp import mpc
+    from ironcub_mpc_tpu_torch.runtime.flight import standing_geometry
+    from ironcub_mpc_tpu_torch.sim.mujoco_sim import HostMujocoSim
+    from ironcub_mpc_tpu_torch.sim.validate import compare_plants
+
+    kd = KinDyn(build_ironcub_model(), device=dev)
+    sim = HostMujocoSim(kd, RobotConfig(), SimConfig(use_nn_jet_dynamics=False))
+    q0, z_min = standing_geometry(kd, SimConfig().initial_position_deg)
+    sim.set_state(np.eye(3), [0.0, 0.0, -z_min + 0.01], q0)
+    sim.set_joint_positions(q0)
+    sim.set_thrust(np.full(4, 10.0))
+    sim.step(500)
+    snap = sim.snapshot()
+    mujoco.mj_forward(sim.model, sim.data)
+    com_err = float(np.abs(snap.com_pos[0].cpu().numpy()
+                           - sim.data.subtree_com[1]).max())
+    check(com_err <= 1e-4, f"host_runtime mujoco: CoM {com_err:.3e} m from "
+          "MuJoCo's")
+    cfg = MPCConfig()
+    sched, sel = build_schedule(cfg), joint_selector(RobotConfig(), cfg)
+    settings = admm.ADMMSettings(max_iter=60)
+    channels = {k: np.zeros((30, 3)) for k in
+                ("positionCoM", "velocityCoM", "RPY", "RPYDot")}
+    problem, carry = mpc.configure(cfg, sched, sel, snap, channels,
+                                   np.full(600, 0.08), settings, device=dev)
+    statuses = []
+    t0 = time.perf_counter()
+    for _ in range(HM_TICKS):
+        carry, o = mpc.mpc_tick(cfg, sched, sel, settings, problem, carry,
+                                sim.snapshot(), sim.estimated_thrust_dot())
+        host = torch.cat([o.joints_pos_ref[0], o.throttle[0],
+                          o.thrust_des[0], o.status.float()]).cpu().numpy()
+        n = kd.n
+        sim.set_joint_positions(host[:n])
+        sim.set_throttle(host[n:n + 4])
+        sim.set_thrust(host[n + 4:n + 8])
+        statuses.append(int(host[n + 8]))
+        sim.step(5)
+    loop_ms = 1e3 * (time.perf_counter() - t0) / HM_TICKS
+    check(all(s in (admm.SOLVED, admm.SOLVED_INACCURATE) for s in statuses),
+          f"host_runtime mujoco: statuses {statuses}")
+    t0 = time.perf_counter()
+    rep = compare_plants(n_ticks=HM_COMPARE_TICKS, device=dev)
+    rep["wall_s"] = time.perf_counter() - t0
+    check(rep["finite"] and rep["torch_solved_frac"] == 1.0
+          and rep["mujoco_solved_frac"] == 1.0,
+          f"host_runtime compare_plants: {rep}")
+    for k, lim in PLANT_DIV_BOUNDS.items():
+        check(rep[k] < lim, f"host_runtime compare_plants: {k} {rep[k]} >= "
+              f"{lim}")
+    out["host_mujoco"] = dict(com_err_m=com_err, ticks=HM_TICKS,
+                              ms_per_tick=loop_ms, compare_plants=rep)
+    print(f"[host_runtime] mujoco {mujoco.__version__}: snapshot CoM "
+          f"{com_err:.2e} m from MuJoCo's, {HM_TICKS} closed-loop ticks "
+          f"solved at {loop_ms:.3f} ms/tick; compare_plants({HM_COMPARE_TICKS})"
+          f" {rep}")
+
+
+def phase_host_runtime(K, dev, record, main_runs):
+    """The native library built by g++ and its ring's stress; the real-time
+    driver paced at twice its tick and at the reference's 5 ms, its host
+    waits and kernels a tick; a device trace; solves/s of the batch-256
+    replay tick; a telemetry .mat round trip; the host-MuJoCo plant where
+    MuJoCo is installed."""
+    import importlib.util
+
+    import scipy.io
+
+    from ironcub_mpc_tpu_torch.core.types import expand_lanes, tree_map
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.qp import mpc
+    from ironcub_mpc_tpu_torch.runtime import flight, native, telemetry
+    from ironcub_mpc_tpu_torch.runtime.replay import load_flight_replay
+    from ironcub_mpc_tpu_torch.utils.profiling import (device_trace,
+                                                       solves_per_second)
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import realtime_driver_torch as rtd
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    out = {}
+    # --- a. the native library --------------------------------------------
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    check(native.available(), "host_runtime: native library not loaded")
+    t0 = time.perf_counter()
+    rc = native.ring_stress(1024, 8, 2_000_000)
+    stress_s = time.perf_counter() - t0
+    check(rc == 0, f"host_runtime: ring_stress error class {rc}")
+    policy = os.sched_getscheduler(0)
+    out["native"] = dict(lib=path.name, build_s=build_s, ring_stress_rc=rc,
+                         ring_stress_s=stress_s,
+                         sched_policy={os.SCHED_OTHER: "SCHED_OTHER",
+                                       os.SCHED_FIFO: "SCHED_FIFO",
+                                       os.SCHED_RR: "SCHED_RR"}.get(
+                                           policy, str(policy)))
+    print(f"[host_runtime] native: g++ build {build_s:.2f} s ({path.name}), "
+          f"ring_stress(1024, 8, 2e6) rc {rc} in {stress_s:.2f} s, "
+          f"policy {out['native']['sched_policy']}")
+
+    # --- b. the real-time driver on the card -------------------------------
+    tick = rtd.HoverTick(dev)
+    for _ in range(3):
+        tick()
+    probe = []
+    for _ in range(RT_PROBE):
+        t0 = time.perf_counter()
+        tick()
+        probe.append(1e3 * (time.perf_counter() - t0))
+    probe_ms = float(np.mean(probe))
+    period_s = max(RT_MIN_PERIOD_S, 2e-3 * probe_ms)
+    drain = out_dir / "rt_paced.f32"
+    K.reset_launches()
+    paced = rtd.run(RT_TICKS, period_s, drain_path=str(drain), verbose=False,
+                    tick=tick)
+    launches = read_launches(K)
+    rec = np.fromfile(drain, np.float32).reshape(-1, rtd.RECORD_LEN)
+    for k, n in launches.items():
+        check(n > 0, f"host_runtime driver: {k} was never launched")
+    check(paced["drained_records"] == RT_TICKS and len(rec) == RT_TICKS,
+          f"host_runtime driver: {paced['drained_records']} records drained")
+    check(paced["ring_dropped"] == 0,
+          f"host_runtime driver: {paced['ring_dropped']} records dropped")
+    check(np.isin(rec[:, 1], (admm.SOLVED, admm.SOLVED_INACCURATE)).all(),
+          f"host_runtime driver: statuses {np.unique(rec[:, 1])}")
+    check(paced["overruns"] <= RT_OVERRUN_FRAC * RT_TICKS,
+          f"host_runtime driver: {paced['overruns']} overruns of {RT_TICKS} "
+          f"ticks at {1e3 * period_s:.1f} ms")
+    fast = rtd.run(RT_TICKS, RT_REF_PERIOD_S,
+                   drain_path=str(out_dir / "rt_5ms.f32"), verbose=False,
+                   tick=tick)
+    prof = profile_window(lambda n: [tick() for _ in range(n)])
+    d2h = sum(n for k, n in prof["copies"].items() if "DtoH" in k)
+    syncs, where = driver_syncs(tick, RT_SYNC_TICKS)
+    per_tick = dict(syncs=syncs, device_to_host=d2h / prof["ticks"])
+    check(per_tick["syncs"] == 1 and per_tick["device_to_host"] == 1,
+          f"host_runtime driver: {per_tick} host waits and device-to-host "
+          f"copies a tick, 1 and 1 expected (copies {prof['copies']}, "
+          f"waits by tick {where})")
+    for k in ("admm_segment", "woodbury_ns"):
+        check(prof["kernels"].get(k, {}).get("calls", 0) > 0,
+              f"host_runtime driver: {k} not in the profiled ticks")
+    busy = prof["device_busy_ms"]
+    prof["busy_share_unprofiled"] = (
+        busy / prof["ticks"] / paced["mean_solve_ms"]
+        if not isinstance(busy, str) else busy)
+    out["driver"] = dict(probe_ms=probe_ms, period_ms=1e3 * period_s,
+                         paced=paced, ref_5ms=fast, launches=launches,
+                         launches_per_tick={k: n / (RT_TICKS + 20)
+                                            for k, n in launches.items()},
+                         waits_per_tick=per_tick, profile=prof)
+    print(f"[host_runtime] driver: {RT_PROBE}-tick probe {probe_ms:.3f} ms; "
+          f"{RT_TICKS} ticks paced at {1e3 * period_s:.1f} ms: mean "
+          f"{paced['mean_solve_ms']:.3f} ms, p99 {paced['p99_solve_ms']:.3f} "
+          f"ms, {paced['overruns']} overruns, {paced['drained_records']} "
+          f"drained, {paced['ring_dropped']} dropped; launches {launches}")
+    print(f"[host_runtime] driver at 5 ms: mean {fast['mean_solve_ms']:.3f} "
+          f"ms, p99 {fast['p99_solve_ms']:.3f} ms, {fast['overruns']} "
+          f"overruns of {RT_TICKS} ({fast['overruns_warmup']} warm-up / "
+          f"{fast['overruns_steady']} steady), {fast['stall_events']} stall "
+          f"events, worst lateness {fast['worst_lateness_ms']:.1f} ms")
+    print(f"[host_runtime] driver profiled {prof['ticks']} ticks: "
+          f"{per_tick['syncs']:.0f} host wait and "
+          f"{per_tick['device_to_host']:.0f} device-to-host copy a tick "
+          f"(copies {prof['copies']}), device busy {busy} ms of "
+          f"{prof['wall_ms']:.3f} ms (a tick's device time over the paced "
+          f"mean tick: {prof['busy_share_unprofiled']}), "
+          f"{prof['device_kernels_per_tick']:.1f} device kernels/tick, "
+          f"kernels {prof['kernels']}")
+
+    # --- c. profiling helpers ----------------------------------------------
+    trace_dir = out_dir / "host_runtime_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with device_trace(str(trace_dir)):
+        tick()
+        tick()
+    traces = list(trace_dir.glob("trace_*.json"))
+    check(len(traces) == 1, f"host_runtime: {len(traces)} trace files")
+    text = traces[0].read_text()
+    for k in ("admm_segment", "woodbury_ns"):
+        check(k in text, f"host_runtime: the trace does not name {k}")
+    replay = load_flight_replay(device=dev)
+    settings = admm.ADMMSettings(**BENCH, batch_guard=True)
+    problem, carry = replay.configure(settings)
+    jitter = torch.as_tensor(
+        (0.1 * np.random.default_rng(0).standard_normal((BATCH, 6))
+         ).astype(np.float32), device=dev)
+    snap, est = replay.tick_inputs(0, BATCH, jitter)
+    sps = solves_per_second(BATCH, SPS_ITERS, mpc.mpc_tick, replay.cfg,
+                            replay.sched, replay.sel, settings, problem,
+                            expand_lanes(carry, BATCH), snap, est)
+    main_sps = main_runs[f"batch{BATCH}"]["solves_per_s"]
+    out["profiling"] = dict(trace_bytes=len(text), trace=traces[0].name,
+                            solves_per_s=sps, main_solves_per_s=main_sps)
+    print(f"[host_runtime] device_trace of 2 driver ticks: {len(text)} bytes "
+          f"naming both kernels; solves_per_second at batch {BATCH}: "
+          f"{sps:.1f} (phase 4's chained ticks {main_sps:.1f}, "
+          f"{main_runs[f'batch{BATCH}']['ms_per_tick']:.3f} ms/tick)")
+
+    # --- d. telemetry to .mat ----------------------------------------------
+    loop, pos_traj, alpha_traj = flight.build_flight_loop(device=dev)
+    period = loop.cfg.period_mpc
+    tel, _ = flight.run_flight(TEL_TICKS * period, settle_s=0.05, loop=loop,
+                               pos_traj=pos_traj, alpha_traj=alpha_traj)
+    lane0 = tree_map(lambda v: v[:, 0], tel)
+    want = telemetry.to_mat_dict(lane0, period)
+    path = telemetry.save_mat(lane0, str(out_dir / "host_runtime.mat"),
+                              period)
+    back = scipy.io.loadmat(path)
+    keys = list(telemetry.MAT_KEYS.values()) + ["time_controller"]
+    check(sorted(want) == sorted(keys), f"host_runtime mat: keys {sorted(want)}")
+    for k in keys:
+        v = np.atleast_2d(want[k])
+        check(k in back and back[k].shape == v.shape
+              and np.array_equal(back[k], v),
+              f"host_runtime mat: {k} does not round-trip")
+    check(want["CoMPosition"].shape == (TEL_TICKS, 3)
+          and want["joints_pos_ref"].shape == (TEL_TICKS, 23),
+          "host_runtime mat: channel shapes")
+    out["telemetry"] = dict(ticks=TEL_TICKS, keys=len(keys),
+                            bytes=Path(path).stat().st_size)
+    print(f"[host_runtime] telemetry: {TEL_TICKS} closed-loop ticks saved to "
+          f"{Path(path).name} ({out['telemetry']['bytes']} bytes), {len(keys)} "
+          f"channels round-trip through scipy.io.loadmat")
+
+    # --- e. host MuJoCo -----------------------------------------------------
+    if importlib.util.find_spec("mujoco") is None:
+        out["host_mujoco"] = "not installed"
+        print("[host_runtime] mujoco is not installed on this machine: the "
+              "host-MuJoCo part did not run")
+    else:
+        host_mujoco(dev, out)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[host_runtime] phase {out['phase_s']:.1f} s")
+    check(out["phase_s"] <= HOST_BUDGET_S,
+          f"host_runtime took {out['phase_s']:.1f} s > {HOST_BUDGET_S} s")
+    record["host_runtime"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the closed-loop flight (path B)
 # ---------------------------------------------------------------------------
 
@@ -2048,6 +2368,7 @@ def main():
     long_runs = phase_long_horizon(K, dev, record)
     full_space = phase_full_space(K, dev, record)
     parallel = phase_parallel(K, dev, record)
+    host = phase_host_runtime(K, dev, record, main_runs)
     flights, start = phase_flight(K, dev, record)
     sweep = phase_sweep(K, dev, record, *start)
     record["total_s"] = time.perf_counter() - T_START
@@ -2069,7 +2390,8 @@ def main():
     paths = [seg] + list(main_runs.values()) + list(long_runs.values()) \
         + [v for v in full_space.values()
            if isinstance(v, dict) and "launches" in v] \
-        + [parallel["pipeline"]] + list(flights.values()) + [sweep]
+        + [parallel["pipeline"], host["driver"]] + list(flights.values()) \
+        + [sweep]
     line = []
     for name, sel in pick.items():
         r = next(r for r in rows if r["name"] == name

@@ -12,9 +12,13 @@ The layout mirrors the JAX package so each counterpart is found by name:
 - ``qp``       linearisation, the full-space assembly, condensing (four
                modes), the box-QP solve, debug-log mode and the tick.
 - ``dynamics`` kinodynamics of the reduced URDF model and the wrenches.
-- ``sim``      the 1 kHz rigid-body plant with LSTM+EKF jets.
+- ``sim``      the 1 kHz rigid-body plant with LSTM+EKF jets, the
+               host-MuJoCo plant, its MJCF writer and the cross-engine
+               validation.
 - ``runtime``  the recorded-flight replay loader, the mission trajectories,
-               the closed loop, the flight runner and checkpoints.
+               the closed loop, the flight runner, checkpoints, telemetry
+               to ``.mat`` and the native real-time runtime (ring, pacer).
+- ``utils``    timers, deadline accounting, solves/s and device traces.
 - ``parallel`` Monte-Carlo robustness sweeps over ``torch.distributed``
                process meshes.
 - ``convert``  state carried across from the JAX package as numpy arrays.

@@ -1,2 +1,3 @@
-"""Recorded-flight replay, trajectories, the closed loop, the flight runner
-and checkpoint / resume of its state."""
+"""Recorded-flight replay, trajectories, the closed loop, the flight runner,
+checkpoint / resume of its state, telemetry to ``.mat`` and the native
+real-time runtime (telemetry ring, deadline pacer)."""

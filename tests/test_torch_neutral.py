@@ -94,8 +94,9 @@ def _port_modules():
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, chip_smoke.py, the port's tools and the
-    card-only test files import with JAX and the JAX package blocked."""
+    """Every module of the port, chip_smoke.py, the port's tools and
+    examples and the card-only test files import with JAX and the JAX
+    package blocked."""
     mods = _port_modules()
     for m in ("ops.kernels", "dynamics.kinodynamics", "dynamics.wrenches",
               "dynamics.model", "dynamics.urdf", "dynamics.urdf_export",
@@ -104,7 +105,9 @@ def test_port_never_imports_jax():
               "sim.ekf", "sim.plant", "convert", "parallel", "parallel.mesh",
               "parallel.monte_carlo", "parallel.tp_admm",
               "parallel.pp_pipeline", "parallel.dryrun", "ops.admm",
-              "qp.assembly", "qp.mpc", "qp.condensed"):
+              "qp.assembly", "qp.mpc", "qp.condensed", "utils",
+              "utils.profiling", "runtime.native", "runtime.telemetry",
+              "sim.mjcf", "sim.mujoco_sim", "sim.validate"):
         assert f"ironcub_mpc_tpu_torch.{m}" in mods
     code = (
         "import sys, importlib, runpy\n"
@@ -114,8 +117,12 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "for tool in ('bench_segment_kernels_torch', "
-        "'run_robustness_sweep_torch', 'run_mismatch_sweep_torch'):\n"
+        "'run_robustness_sweep_torch', 'run_mismatch_sweep_torch', "
+        "'capture_rt_torch', 'compare_plants_torch'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='not_main')\n"
+        "for demo in ('realtime_driver', 'hover_demo', 'closed_loop_demo', "
+        "'flight_demo'):\n"
+        "    runpy.run_path(f'examples/{demo}_torch.py', run_name='not_main')\n"
         "for card_test in ('kernels', 'flight', 'full', 'parallel'):\n"
         "    runpy.run_path(f'tests/test_torch_{card_test}_gpu.py', "
         "run_name='not_main')\n"
@@ -127,6 +134,22 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("opts", [
+    {}, dict(floor=True, actuators=True),
+    dict(floor=True, actuators=True, kp=900.0, kd=45.0, timestep=0.002)],
+    ids=["bare", "plant", "tuned"])
+def test_mjcf_copy_matches(opts):
+    """``sim/mjcf.py`` is a copy: the same XML as the source's for the
+    generated model under each option."""
+    from ironcub_mpc_tpu.dynamics import build_ironcub_model as jbuild
+    from ironcub_mpc_tpu.sim import mjcf as jmjcf
+    from ironcub_mpc_tpu_torch.dynamics import build_ironcub_model as tbuild
+    from ironcub_mpc_tpu_torch.sim import mjcf as tmjcf
+
+    assert tmjcf.mjcf_from_model(tbuild(), **opts) == \
+        jmjcf.mjcf_from_model(jbuild(), **opts)
 
 
 def test_import_pins_ieee_fp32():
