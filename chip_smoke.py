@@ -4,7 +4,8 @@ condensed tick on the recorded stream, the segment head-to-head, the
 full-space solver with debug-log mode and the condense modes, the parallel
 axes (pipelined tick, row-sharded solve, multi-process dry run), the host
 side (native runtime, real-time driver, telemetry, host MuJoCo), the
-closed-loop flight and the Monte-Carlo sweep.
+recorded streams against the float64 oracle and the tools, the closed-loop
+flight and the Monte-Carlo sweep.
 
     python3 chip_smoke.py
 
@@ -106,6 +107,21 @@ Phases (any failure exits non-zero):
              wind per lane over the first 20 s of the mission (4000 ticks,
              fewer if the time budget says so), ``flight_stats`` per lane
              and the flight-regression bounds on the wind-free lane 0.
+6b. fidelity_tools  the float64-oracle mirror and the tools: both recorded
+             flight streams (tests/golden/flight_snapshots*.npz, 120 ticks
+             each, the flight configuration, 400 iterations, polish) through
+             the tick on the card at batch 1 with the kernels on, against
+             the float64 oracle of tests/golden_oracle.py on the host at
+             tests/test_command_fidelity.py's tolerances (joints 2e-3 rad,
+             throttle 0.15 %, thrust 0.5 N, thrust rate 2 N/s, throttle
+             updates on the oracle's ticks, at least 5); then the main of
+             every tool of tools/*_torch.py in-process at a small size (the
+             four tick profilers at batch 64, the benches on short chains,
+             the QP dump, the URDF writer, the snapshot recorder read back
+             by runtime/replay.py, and the flight, 2 s unless phase 6's
+             batch-1 ticks say the budget will not hold it: then fewer, with
+             a warning), one summary line each, their kernels launched.
+             Under 90 s.
 7. sweep     the Monte-Carlo sweep (``parallel.run_sweep``) at full width:
              1024 scenarios, the size of one level of SWEEP_r05.json, wind
              σ = 5 N, recovery on, 200 ticks in chunks of 100 (fewer ticks,
@@ -204,8 +220,9 @@ HM_TICKS, HM_COMPARE_TICKS, HOST_BUDGET_S = 40, 300, 120.0
 # 64 unless the whole script, the sweep phase after it included, would pass
 # SCRIPT_BUDGET_S (620 s until the parallel phase came, before the flight,
 # with its ~85 s; 700 s until the host_runtime phase came, also before the
-# flight: its time comes out of the batch-64 slice, so the script aims at
-# about 600 s, half its 1200 s time limit)
+# flight: its time comes out of the batch-64 slice, as does the budget of
+# the fidelity_tools phase after it, so the script aims at about 600 s, half
+# its 1200 s time limit)
 FLIGHT_B1_S, FLIGHT_SETTLE_S = 2.0, 2.0
 FLIGHT_BATCH, FLIGHT_SLICE_S, WIND_STD_N = 64, 20.0, 2.0
 SCRIPT_BUDGET_S = 670.0
@@ -2049,7 +2066,7 @@ def phase_flight(K, dev, record):
     torch.cuda.synchronize()
     probe_ms = 1e3 * (time.perf_counter() - t0) / 20
     left_s = (SCRIPT_BUDGET_S - (time.perf_counter() - T_START) - 20.0
-              - sweep_reserve_s(probe_ms))
+              - FID_BUDGET_S - sweep_reserve_s(probe_ms))
     full = int(round(FLIGHT_SLICE_S / period))
     n_ticks = max(200, min(full, int(1e3 * left_s / (1.1 * probe_ms))))
     K.reset_launches()
@@ -2103,6 +2120,265 @@ def phase_flight(K, dev, record):
     print(f"[flight] batch{B}: lanes min/max {spread}")
     record["flight"] = out
     return out, (loop, settled, channels, alpha)
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the float64-oracle mirror on the card, and the tools
+# ---------------------------------------------------------------------------
+
+# Both recorded streams, 120 ticks each at batch 1 under the flight
+# configuration (400 iterations, polish, the kernels on), against the float64
+# oracle of tests/golden_oracle.py on the host, at tests/test_command_
+# fidelity.py's tolerances (tests/oracle_replay.py); then each tool of
+# tools/*_torch.py in-process at a small size: the profilers at batch 64 with
+# 3 calls a stage, the chained profiler and the benches on chains of 5 ticks
+# (10 for the joint-limits latency), the recorder from tick 2, and last the
+# flight, 2 s unless the phase's budget will not hold it: from the batch-1
+# flight of phase 6 (its settle and ms a tick, the same path), slowed by
+# as much as the recorder's 2 s settle just now took over phase 6's (the
+# host's pace drifts within a run), the phase cuts the tool's seconds to
+# fit FID_BUDGET_S and prints a WARNING, as phase 7 cuts ticks. The phase
+# runs after the flight, which keeps FID_BUDGET_S out of its batch-64 slice
+# (SCRIPT_BUDGET_S).
+FID_STREAMS = {"ramp": "flight_snapshots.npz",
+               "airborne": "flight_snapshots_air.npz"}
+FID_TICKS, TOOL_BATCH, TOOL_ITERS, TOOL_CHAIN = 120, 64, 3, 5
+TOOL_FLIGHT_S, TOOL_FLIGHT_MIN_S, TOOL_LATENCY_CHAIN = 2.0, 0.5, 10
+FID_BUDGET_S = 90.0
+PARTS_REL_TOL = 1e-4
+
+
+def launches_all(K):
+    return {"admm_segment": K.admm_segment.launches,
+            "admm_segment_grouped": K.admm_segment_grouped.launches,
+            "woodbury_ns": K.woodbury_ns.launches}
+
+
+def phase_fidelity_tools(K, dev, record, flight_b1):
+    """The recorded streams on the card against the float64 oracle; every
+    tool's main at a small size, one summary line each, the flight tool last
+    at what the budget holds of 2 s, judged by phase 6's batch-1 flight
+    (``flight_b1``, its run_flight info)."""
+    import contextlib
+    import io
+
+    for sub in ("tests", "tools"):
+        if str(ROOT / sub) not in sys.path:
+            sys.path.insert(0, str(ROOT / sub))
+    import bench_joint_limits_latency_torch
+    import bench_ns_skip_torch
+    import debug_qp_torch
+    import fly_full_trajectory_torch
+    import make_calibrated_urdf_torch
+    import oracle_replay as orp
+    import profile_chained_stages_torch
+    import profile_condense_torch
+    import profile_solve_parts_torch
+    import profile_tick_torch
+    import record_flight_snapshots_torch
+
+    from ironcub_mpc_tpu_torch.ops import admm
+    from ironcub_mpc_tpu_torch.runtime.replay import load_flight_replay
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    out = {"streams": {}, "tools": {}, "paths": []}
+
+    # --- a. the recorded streams against the float64 oracle ---------------
+    settings = admm.ADMMSettings(max_iter=400, polish=True)
+    check(settings.kernel_mode == "auto", "fidelity: the kernels are off")
+    for name, fname in FID_STREAMS.items():
+        path = ROOT / "tests" / "golden" / fname
+        replay = load_flight_replay(path, device=dev)
+        frames = orp.oracle_frames(path)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        port, orc = orp.replay_against_oracle(replay, frames, settings,
+                                              FID_TICKS)
+        wall = time.perf_counter() - t0
+        launches = read_launches(K)
+        for k, n in launches.items():
+            check(n > 0, f"fidelity {name}: {k} was never launched")
+        errs, same, n_upd = orp.command_errors(port, orc)
+        check(all(errs[k] <= tol for k, tol in orp.RECORDED_TOL.items())
+              and same and n_upd >= orp.MIN_CHANGES,
+              f"fidelity {name}: the card's commands against the float64 "
+              f"oracle: max errors {errs} (tolerances {orp.RECORDED_TOL}), "
+              f"throttle updates on the oracle's ticks {same}, {n_upd} of "
+              f"them (at least {orp.MIN_CHANGES})")
+        out["streams"][name] = dict(ticks=FID_TICKS, wall_s=wall,
+                                    max_err=errs, tol=orp.RECORDED_TOL,
+                                    n_throttle_updates=n_upd,
+                                    launches=launches)
+        out["paths"].append({"launches": launches})
+        print(f"[fidelity_tools] {name} stream: {FID_TICKS} ticks on the card "
+              f"(kernels on) against the float64 oracle: max |card - oracle| "
+              f"joints {errs['joints_pos_ref']:.3e} rad, throttle "
+              f"{errs['throttle']:.3e} %, thrust {errs['thrust_des']:.3e} N, "
+              f"thrust rate {errs['thrust_dot_des']:.3e} N/s (tolerances "
+              f"{orp.RECORDED_TOL}); {n_upd} throttle updates, on the "
+              f"oracle's ticks; launches {launches}; {wall:.1f} s")
+    out["part_s"] = {"streams": time.perf_counter() - t_phase}
+
+    # --- b. the tools ------------------------------------------------------
+    def run_tool(name, module, argv, checks, summary, on_path=True):
+        """``module.main(argv)`` with its output kept in the record; its
+        launches join the kernels line unless they only compare kernels
+        with their twins (``on_path=False``)."""
+        K.reset_launches()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rec = module.main(argv)
+        wall = time.perf_counter() - t0
+        launches = launches_all(K)
+        checks(rec, launches)
+        out["tools"][name] = dict(argv=argv, wall_s=wall, launches=launches,
+                                  stdout=buf.getvalue())
+        if on_path:
+            out["paths"].append({"launches": launches})
+        print(f"[fidelity_tools] {name} {' '.join(argv)}: {summary(rec)}; "
+              f"launches {launches}; {wall:.1f} s")
+        return rec
+
+    def launched(name, *kernels):
+        def checks(rec, launches):
+            for k in kernels:
+                check(launches[k] > 0, f"{name}: {k} was never launched")
+            flat = json.dumps(rec, default=str)
+            check("NaN" not in flat and "Infinity" not in flat,
+                  f"{name}: a number of its record is not finite")
+        return checks
+
+    main_kernels = ("admm_segment", "woodbury_ns")
+    dev_arg = ["--device", str(dev)]
+
+    def stages(r):
+        return ", ".join(f"{k} {v:.3f}" for k, v in r["ms"].items()) + " ms"
+
+    batch_args = [str(TOOL_BATCH), "--iters", str(TOOL_ITERS)] + dev_arg
+    run_tool("profile_tick", profile_tick_torch, batch_args,
+             launched("profile_tick", *main_kernels), stages)
+    run_tool("profile_condense", profile_condense_torch, batch_args,
+             launched("profile_condense"), stages)
+
+    def parts_checks(rec, launches):
+        launched("profile_solve_parts", "admm_segment",
+                 "admm_segment_grouped", "woodbury_ns")(rec, launches)
+        for row in rec["kernels"]:
+            check(row["launches"] == row["calls"] >= TOOL_ITERS
+                  and row["rel_err"] <= PARTS_REL_TOL,
+                  f"profile_solve_parts: {row}")
+
+    run_tool("profile_solve_parts", profile_solve_parts_torch, batch_args,
+             parts_checks, lambda r: stages(r) + "; kernels (CUDA events) " + (
+                 ", ".join(f"{k['name']} {k['ms']:.4f} ms (twin "
+                           f"{k['plain_ms']:.4f}, rel err {k['rel_err']:.1e})"
+                           for k in r["kernels"])), on_path=False)
+    chain_args = [str(TOOL_BATCH), str(TOOL_CHAIN), "--reps", "1"] + dev_arg
+    run_tool("profile_chained_stages", profile_chained_stages_torch,
+             chain_args, launched("profile_chained_stages", *main_kernels),
+             lambda r: ", ".join(f"{k} {v:.3f}" for k, v in
+                                 r["budget_ms"].items()) + " ms; slope "
+             f"{r['slope_us_per_iteration']:.1f} us/iteration")
+    run_tool("bench_ns_skip", bench_ns_skip_torch, chain_args,
+             launched("bench_ns_skip", *main_kernels), lambda r: ", ".join(
+                 f"{k} {v:.0f}" for k, v in r["solves_per_s"].items())
+             + " solves/s")
+
+    def latency_checks(rec, launches):
+        launched("bench_joint_limits_latency", *main_kernels)(rec, launches)
+        modes = rec["modes"]
+        check(rec["n_box"] == 120
+              and all(v > 0 for v in modes["on"]["launches_per_tick"].values())
+              and not any(modes["off"]["launches_per_tick"].values()),
+              f"bench_joint_limits_latency: {rec}")
+
+    run_tool("bench_joint_limits_latency", bench_joint_limits_latency_torch,
+             [str(TOOL_LATENCY_CHAIN)] + dev_arg, latency_checks,
+             lambda r: ", ".join(
+                 f"kernel_mode={m}: p50 {v['p50_ms']:.3f} ms, solved "
+                 f"{v['solved_frac']:.3f}" for m, v in r["modes"].items()))
+
+    def dump_checks(rec, launches):
+        check(len(rec) == 19 and all(np.isfinite(v).all()
+                                     for v in rec.values()),
+              f"debug_qp: {sorted(rec)}")
+
+    run_tool("debug_qp", debug_qp_torch,
+             [str(out_dir / "debug_qp_torch.npz")] + dev_arg, dump_checks,
+             lambda r: f"{len(r)} arrays, |H| max "
+             f"{np.abs(r['hessian']).max():.4g}, |g| max "
+             f"{np.abs(r['gradient']).max():.4g}")
+    urdf = out_dir / "ironcub_mk3_calibrated_torch.urdf"
+    run_tool("make_calibrated_urdf", make_calibrated_urdf_torch,
+             ["--out", str(urdf)], lambda rec, launches: check(
+                 urdf.read_bytes() == (ROOT / "data" /
+                                       "ironcub_mk3_calibrated.urdf"
+                                       ).read_bytes(),
+                 "make_calibrated_urdf: not the committed URDF"),
+             lambda r: "byte-identical to data/ironcub_mk3_calibrated.urdf")
+    stream = out_dir / "flight_snapshots_torch.npz"
+
+    def stream_checks(rec, launches):
+        launched("record_flight_snapshots", *main_kernels)(rec, launches)
+        replay = load_flight_replay(stream, device=dev)
+        check(replay.n_ticks == 3 and int(rec["meta_start_tick"][0]) == 2,
+              f"record_flight_snapshots: {replay.n_ticks} ticks")
+
+    run_tool("record_flight_snapshots", record_flight_snapshots_torch,
+             ["2", "3", str(stream)] + dev_arg, stream_checks,
+             lambda r: f"{r['est_td'].shape[0]} ticks from tick 2, thrust "
+             f"{r['meta_thrust_range'][0]:.1f}-{r['meta_thrust_range'][1]:.1f}"
+             " N, read back by runtime/replay.py")
+
+    # the flight last, its seconds fitted to what is left of the budget
+    settle_s = flight_b1["settle_wall_s"]
+    tick_s = flight_b1["ms_per_tick"] / 1e3
+    # the host's pace now against phase 6's: the recorder settled the same
+    # 2 s as the flight tool will
+    slow = max(1.0, out["tools"]["record_flight_snapshots"]["wall_s"]
+               / settle_s)
+    left_s = FID_BUDGET_S - (time.perf_counter() - t_phase)
+    # whole twentieths of a second (10 ticks)
+    n_fit = int((left_s - 1.25 * slow * settle_s - 5.0)
+                / (1.25 * slow * tick_s))
+    seconds = round(max(TOOL_FLIGHT_MIN_S, min(TOOL_FLIGHT_S,
+                                                0.05 * (n_fit // 10))), 2)
+    if seconds < TOOL_FLIGHT_S:
+        print(f"[fidelity_tools] WARNING: the flight tool cut to {seconds:.2f} "
+              f"of {TOOL_FLIGHT_S} s by the {FID_BUDGET_S:.0f} s budget (phase "
+              f"6's batch-1 flight: settle {settle_s} s, "
+              f"{flight_b1['ms_per_tick']} ms a tick; the host {slow:.2f}x "
+              f"slower now)")
+
+    def flight_checks(rec, launches):
+        launched("fly_full_trajectory", *main_kernels)(rec, launches)
+        check(rec["finite"] and rec["n_not_solved"] == 0
+              and rec["ticks"] == int(round(seconds / 0.005)),
+              f"fly_full_trajectory: {rec}")
+        check(rec["device"] == card_line(), "fly_full_trajectory: device "
+              f"{rec['device']!r} is not the card's line")
+
+    run_tool("fly_full_trajectory", fly_full_trajectory_torch,
+             [str(seconds), "--out",
+              str(out_dir / "FLIGHT_torch_smoke.json")] + dev_arg,
+             flight_checks, lambda r: (
+                 f"{r['ticks']} ticks, {r['ms_per_tick']} ms/tick, CoM RMSE "
+                 f"{r['com_rmse_m']} m, RPY RMSE {r['rpy_rmse_deg']} deg, "
+                 f"solved {r['solved_frac']}"))
+
+    out["part_s"]["tools"] = (time.perf_counter() - t_phase
+                              - out["part_s"]["streams"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fidelity_tools] the phase took {out['phase_s']:.1f} s (streams "
+          f"{out['part_s']['streams']:.1f}, tools {out['part_s']['tools']:.1f};"
+          f" budget {FID_BUDGET_S:.0f} s)")
+    check(out["phase_s"] <= FID_BUDGET_S,
+          f"fidelity_tools took {out['phase_s']:.1f} s > {FID_BUDGET_S} s")
+    record["fidelity_tools"] = {k: v for k, v in out.items() if k != "paths"}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2370,6 +2646,7 @@ def main():
     parallel = phase_parallel(K, dev, record)
     host = phase_host_runtime(K, dev, record, main_runs)
     flights, start = phase_flight(K, dev, record)
+    fid = phase_fidelity_tools(K, dev, record, flights["batch1"]["info"])
     sweep = phase_sweep(K, dev, record, *start)
     record["total_s"] = time.perf_counter() - T_START
 
@@ -2390,8 +2667,8 @@ def main():
     paths = [seg] + list(main_runs.values()) + list(long_runs.values()) \
         + [v for v in full_space.values()
            if isinstance(v, dict) and "launches" in v] \
-        + [parallel["pipeline"], host["driver"]] + list(flights.values()) \
-        + [sweep]
+        + [parallel["pipeline"], host["driver"]] + fid["paths"] \
+        + list(flights.values()) + [sweep]
     line = []
     for name, sel in pick.items():
         r = next(r for r in rows if r["name"] == name

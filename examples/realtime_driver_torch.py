@@ -45,12 +45,13 @@ RECORD_LEN = 16  # [tick, status, pri, dua, thr*4, T_des*4, solve_ms, spare*3]
 DRIVER_SETTINGS = dict(max_iter=60, rho_update_iters=(15, 40))
 
 
-def hover_setup(settings=None, device=None):
+def hover_setup(settings=None, device=None, cfg=None):
     """The hover problem of the JAX package's ``__graft_entry__._setup``
     from the port's modules: the calibrated Mk3 model at base z 0.8 with
     each jet at a quarter of the weight, zero trajectories, full gravity
-    compensation. Returns (cfg, sched, sel, settings, problem, carry,
-    snapshot); the snapshot and the carry have one lane."""
+    compensation, under ``cfg`` (the stock ``MPCConfig`` by default).
+    Returns (cfg, sched, sel, settings, problem, carry, snapshot); the
+    snapshot and the carry have one lane."""
     from ironcub_mpc_tpu_torch.core.config import (MPCConfig, RobotConfig,
                                                    SimConfig, joint_selector)
     from ironcub_mpc_tpu_torch.dynamics import (KinDyn, compute_snapshot,
@@ -58,7 +59,7 @@ def hover_setup(settings=None, device=None):
     from ironcub_mpc_tpu_torch.horizon.schedule import build_schedule
 
     dev = resolve_device(device)
-    cfg = MPCConfig()
+    cfg = cfg or MPCConfig()
     settings = settings or admm.ADMMSettings(max_iter=100)
     rc = RobotConfig()
     sched = build_schedule(cfg)

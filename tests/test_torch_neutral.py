@@ -118,8 +118,15 @@ def test_port_never_imports_jax():
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "for tool in ('bench_segment_kernels_torch', "
         "'run_robustness_sweep_torch', 'run_mismatch_sweep_torch', "
-        "'capture_rt_torch', 'compare_plants_torch'):\n"
+        "'capture_rt_torch', 'compare_plants_torch', 'common_torch', "
+        "'fly_full_trajectory_torch', 'profile_tick_torch', "
+        "'profile_chained_stages_torch', 'profile_condense_torch', "
+        "'profile_solve_parts_torch', 'bench_ns_skip_torch', "
+        "'bench_joint_limits_latency_torch', 'debug_qp_torch', "
+        "'record_flight_snapshots_torch', 'make_calibrated_urdf_torch'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='not_main')\n"
+        "sys.path.insert(0, 'tests')\n"
+        "runpy.run_path('tests/oracle_replay.py', run_name='not_main')\n"
         "for demo in ('realtime_driver', 'hover_demo', 'closed_loop_demo', "
         "'flight_demo'):\n"
         "    runpy.run_path(f'examples/{demo}_torch.py', run_name='not_main')\n"

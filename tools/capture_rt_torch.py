@@ -18,23 +18,18 @@ file, so a committed record (RT_r04.json, RT_r05.json) is never replaced.
 import argparse
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "examples"))
+sys.path.insert(0, str(ROOT / "tools"))
+
+from common_torch import card_line  # noqa: E402
 
 POLICIES = {os.SCHED_OTHER: "SCHED_OTHER", os.SCHED_FIFO: "SCHED_FIFO",
             os.SCHED_RR: "SCHED_RR"}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def main(argv=None):

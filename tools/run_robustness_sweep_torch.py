@@ -36,14 +36,15 @@ same command resumes interrupted levels.
 
 import dataclasses
 import json
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+from common_torch import device_entry, writable  # noqa: E402
 
 WIND_LEVELS = (5.0, 10.0, 20.0)
 CHUNK_TICKS = 250
@@ -70,25 +71,7 @@ def parse_args(argv, n_default=256):
 
 def out_path(opts):
     """--out as a path; refuses the committed sweep records."""
-    if "out" not in opts:
-        return None
-    path = Path(opts["out"])
-    if path.resolve().parent == ROOT and re.fullmatch(
-            r"(SWEEP|MISMATCH\w*)_r\d+\.json", path.name):
-        raise SystemExit(f"refusing to write over the committed record "
-                         f"{path.name}; pass another --out")
-    return path
-
-
-def device_entry(dev) -> str:
-    """The card's name and power limit as nvidia-smi prints them, or the
-    device type."""
-    if dev.type != "cuda":
-        return dev.type
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[dev.index or 0]
+    return writable(opts["out"]) if "out" in opts else None
 
 
 def branch_airborne(skip_s, device):
