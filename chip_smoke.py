@@ -22,17 +22,22 @@ Phases (any failure exits non-zero):
              at P = 128, a cluster of 8 at P = 256) is held against the twin
              and timed as well, at batch 1, 64 and 256 (and the stock
              chunk and refresh at the sweep's batch, 1024), and woodbury_ns's
-             general route (one block a scenario, a device scratch) at the
-             shapes the tuned routes do not take: P = 256 with n_box 132 (a
-             control horizon of 13 with joint limits), P = 384, P = 640 and
-             P = 1152 (above a block's 1024 threads; there the segments
-             stream K⁻¹ with two coordinates a thread), each with
-             torch.linalg.inv_ex beside it; admm_segment's wide variant
-             (state and rhs in device memory) at P = 4224.
+             general route (4 + 2·n_ns launches a call: the products over
+             (scenario, output tile), the elimination on a cluster, a
+             device scratch; each row prints its cluster, tile edge and
+             device kernels) at the shapes the tuned routes do not take:
+             P = 256 with n_box 132 (a control horizon of 13 with joint
+             limits), P = 384, P = 640 and P = 1152 (above a block's 1024
+             threads; there the segments stream K⁻¹ with two coordinates a
+             thread), each with torch.linalg.inv_ex beside it and held
+             exactly symmetric; admm_segment's wide variant (state and rhs
+             in device memory) at P = 4224.
              The previous design's times stand beside the new ones, and the
              script fails where a kernel is more than 10 % slower than its
-             previous design at a main-path shape, or where woodbury_ns at
-             n_box 120 loses to torch.linalg.inv_ex. The grouped segment
+             previous design at a main-path shape or any general-route
+             shape, or where woodbury_ns at n_box 120 (batch 256) or the
+             general route at P = 256, n_box 132 (batch 1, n_ns 0 and 1)
+             loses to torch.linalg.inv_ex. The grouped segment
              (group 1 to 16, one wave and four, P = 256) is also held
              against, and timed beside, the single-scenario kernel and the
              stock-PyTorch loop.
@@ -50,7 +55,8 @@ Phases (any failure exits non-zero):
              with the box over all 132 inputs, so the refresh takes
              woodbury_ns's general route; 10 ticks at batch 1 and 10 at
              batch 64, every lane solved, the first 5 against the port's
-             CPU run.
+             CPU run, then 5 profiled: the refresh's device ms and device
+             kernels a tick.
 5b. full_space  the recorded stream under MPCConfig(qp_solver="full")
              (588 variables, 512 rows, the default solver settings: 250
              iterations, ρ marks 25 / 75 / 150, polish): 20 ticks at batch
@@ -178,7 +184,7 @@ BENCH = dict(max_iter=40, polish=True, rho_update_iters=(15,),
 N_TICKS, N_CHECK, BATCH = 40, 20, 256
 # a long horizon with joint limits: nU = 8·13 + 4·7 = 132 -> P = 256, n_box 132
 LONG_HORIZON = dict(control_horizon=13, use_joint_position_constraint=True)
-LH_TICKS, LH_CHECK, LH_BATCH = 10, 5, 64
+LH_TICKS, LH_CHECK, LH_BATCH, LH_PROFILED = 10, 5, 64, 5
 # P = 1152 (nU = 1140), above the 1024 threads of a block: a box of 8 and
 # of 132 (box0 = nU − n_box)
 BIG_P, BIG_NU, BIG_BOX0S = 1152, 1140, (1132, 1008)
@@ -234,19 +240,34 @@ RESUME_LANES, RESUME_TICKS = 16, 8
 # Device ms of the previous designs of admm_segment (K⁻¹ in shared memory, one
 # thread per coordinate) and woodbury_ns (intermediates in a device-memory
 # scratch, one block of 4 × 4 register tiles per scenario), run H of PERF.md,
-# and of admm_segment_grouped (one block of 8 scenarios, 55 rows of each K⁻¹
-# resident, the rest streamed from L2), run L, from this script's phase 2 on
-# PREVIOUS_CARD, keyed by batch; the new designs are held to them at the
-# main path's shapes and the grouped kernel's two timed shapes.
+# of admm_segment_grouped (one block of 8 scenarios, 55 rows of each K⁻¹
+# resident, the rest streamed from L2), run L, and of woodbury_ns's general
+# route before its products were spread over the card and its elimination
+# over a cluster (one block a scenario, 64 × 64 output tiles of 4 × 4 a
+# thread, the elimination on one SM: PERF.md §6's rows of runs R, V and AJ),
+# from this script's phase 2 on PREVIOUS_CARD, keyed by batch; the new
+# designs are held to them at the main path's shapes, the grouped kernel's
+# two timed shapes and every shape of the general route.
 PREVIOUS_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREVIOUS_MS = {
     ("admm_segment", 5): {1: 0.0129, 64: 0.0132, 256: 0.0142},
-    ("woodbury_ns", 24, 1): {1: 0.1836, 64: 0.1857, 256: 0.3095},
-    ("woodbury_ns", 24, 0): {1: 0.0625, 64: 0.0634, 256: 0.0969},
-    ("woodbury_ns", 120, 1): {256: 2.547},
+    ("woodbury_ns", P, 24, 1): {1: 0.1836, 64: 0.1857, 256: 0.3095},
+    ("woodbury_ns", P, 24, 0): {1: 0.0625, 64: 0.0634, 256: 0.0969},
+    ("woodbury_ns", P, 120, 1): {256: 2.547},
+    ("woodbury_ns", P2, 132, 0): {1: 1.0690, 64: 1.1631},
+    ("woodbury_ns", P2, 132, 1): {1: 1.9107, 64: 2.2659},
+    ("woodbury_ns", 384, 80, 1): {1: 3.4794},
+    ("woodbury_ns", 640, 8, 1): {1: 13.0792, 16: 17.4215},
+    ("woodbury_ns", 640, 528, 0): {1: 51.7684},
+    ("woodbury_ns", BIG_P, 8, 0): {1: 2.9133},
+    ("woodbury_ns", BIG_P, 8, 1): {1: 81.6738},
+    ("woodbury_ns", BIG_P, 132, 0): {1: 8.7212},
+    ("woodbury_ns", BIG_P, 132, 1): {1: 87.6901},
     ("admm_segment_grouped", 8): {512: 0.2628, 256: 0.0389},
 }
 SLOWER_THAN_PREVIOUS = 1.10
+# the long horizon's refresh at batch 1 must not lose to torch.linalg.inv_ex
+LH_P, LH_NB = P2, 132
 
 
 def check(cond, msg):
@@ -397,14 +418,14 @@ def woodbury_bound(batch, n_box, n_ns, p=P):
 
 def _previous(row):
     """The previous design's ms at this row's shape, where it was timed."""
-    if row["P"] != P:
+    if row["name"] == "woodbury_ns":
+        key = ("woodbury_ns", row["P"], row["n_box"], row["n_ns"])
+    elif row["P"] != P:
         return None
-    if row["name"] == "admm_segment":
+    elif row["name"] == "admm_segment":
         key = ("admm_segment", row["length"])
-    elif row["name"] == "admm_segment_grouped":
-        key = ("admm_segment_grouped", row["group"])
     else:
-        key = ("woodbury_ns", row["n_box"], row["n_ns"])
+        key = ("admm_segment_grouped", row["group"])
     return PREVIOUS_MS.get(key, {}).get(row["batch"])
 
 
@@ -443,16 +464,22 @@ def woodbury_row(K, ins, batch, box0, nb, n_ns, cluster=None, ref=None,
     check(bool(torch.isfinite(got).all()) and err <= tol,
           f"woodbury_ns B={batch} P={p} box0={box0} n_ns={n_ns} "
           f"{plan['route']} cluster={plan['cluster']}: err {err:.3e} > {tol}")
+    if plan["route"] == "general":
+        check(torch.equal(got, got.mT),
+              f"woodbury_ns B={batch} P={p} box0={box0} n_ns={n_ns} general: "
+              "the output is not exactly symmetric")
     bms, by = woodbury_bound(batch, nb, n_ns, p)
     return dict(
         name="woodbury_ns", batch=batch, P=p, box0=box0, n_box=nb, n_ns=n_ns,
         route=plan["route"], cluster=plan["cluster"],
+        tile=plan.get("tile", "none"), kernels=plan.get("kernels", 1),
         forced=cluster is not None, max_abs_err=err, tol=tol,
         ms=cuda_ms(lambda: K.woodbury_ns(*ins, cluster=cluster, **kw)),
         plain_ms=None, bound_ms=bms, bound_by=by, library_ms=None)
 
 
 def phase_kernels(K, dev, record):
+    t_phase = time.perf_counter()
     rows = []
     # batch 1 and FLIGHT_BATCH are the closed loop's shapes, BATCH the
     # replay's; (P, NU, BOX0) is the stock layout, (P2, NU2, BOX02) twice the
@@ -511,7 +538,8 @@ def phase_kernels(K, dev, record):
     for r in rows:
         shape = ", ".join(f"{k}={r[k]}" for k in
                           ("batch", "length", "group", "P", "variant", "route",
-                           "box0", "n_box", "n_ns", "cluster") if k in r)
+                           "box0", "n_box", "n_ns", "cluster", "tile",
+                           "kernels") if k in r)
         opt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
         line = (f"[kernels] {r['name']}({shape}): err {r['max_abs_err']:.2e} "
                 f"(tol {r['tol']:.0e})  kernel {r['ms']:.4f} ms  twin "
@@ -522,7 +550,8 @@ def phase_kernels(K, dev, record):
             r["previous_ms"] = prev
             line += f"  previous design {prev:.4f} ms ({PREVIOUS_CARD})"
             main_path = (r["name"] != "woodbury_ns"
-                         or r["n_box"] == NU - BOX0)
+                         or r["n_box"] == NU - BOX0
+                         or r["route"] == "general")
             if main_path and r["ms"] > SLOWER_THAN_PREVIOUS * prev:
                 slow.append(f"{r['name']}({shape}) {r['ms']:.4f} ms against "
                             f"{prev:.4f} ms")
@@ -540,7 +569,16 @@ def phase_kernels(K, dev, record):
     check(wide["ms"] <= wide["library_ms"],
           f"woodbury_ns at n_box {NU}, batch {BATCH}: {wide['ms']:.4f} ms "
           f"loses to torch.linalg.inv_ex, {wide['library_ms']:.4f} ms")
+    for r in rows:
+        if r["name"] == "woodbury_ns" and r["route"] == "general" \
+                and (r["P"], r["n_box"], r["batch"]) == (LH_P, LH_NB, 1):
+            check(r["ms"] <= r["library_ms"],
+                  f"woodbury_ns general at P {LH_P}, n_box {LH_NB}, batch 1, "
+                  f"n_ns {r['n_ns']}: {r['ms']:.4f} ms loses to "
+                  f"torch.linalg.inv_ex, {r['library_ms']:.4f} ms")
     record["kernels"] = rows
+    record["kernels_phase_s"] = time.perf_counter() - t_phase
+    print(f"[kernels] the phase took {record['kernels_phase_s']:.1f} s")
     return rows
 
 
@@ -849,14 +887,34 @@ def phase_long_horizon(K, dev, record):
                               batch, LH_CHECK, jit)
         worst = compare_streams(gpu[:LH_CHECK], cpu, tol,
                                 f"long_horizon {name}")
+        # the refresh's device time and device kernels a tick (the general
+        # route launches 4 + 2·n_ns kernels a call)
+        prof = profile_window(lambda n: run_ticks(
+            mpc, replay, problem, carry, settings, batch, n, jit),
+            n=LH_PROFILED)
+        refresh = prof["kernels"].get("woodbury_ns")
+        check(refresh is not None,
+              f"long_horizon {name}: no woodbury_ns kernel in the profile")
         out[name] = dict(batch=batch, ticks=LH_TICKS, nU=nu, P=p, n_box=nb,
                          ms_per_tick_first_included=wall_ms / LH_TICKS,
                          launches=launches, solved_frac=solved,
-                         max_err_vs_cpu=worst)
+                         max_err_vs_cpu=worst,
+                         refresh_device_ms_per_tick=refresh["total_ms"]
+                         / prof["ticks"],
+                         refresh_kernels_per_tick=refresh["calls"]
+                         / prof["ticks"],
+                         profile=prof)
         print(f"[long_horizon] {name}: nU {nu} (P {p}, n_box {nb}), "
               f"{LH_TICKS} ticks, solved fraction {solved}, launches "
               f"{launches}, {wall_ms / LH_TICKS:.3f} ms/tick (first tick "
               f"included), max err vs CPU over {LH_CHECK} ticks {worst}")
+        print(f"[long_horizon] {name}: profiled {prof['ticks']} ticks: "
+              f"woodbury_ns {out[name]['refresh_device_ms_per_tick']:.4f} "
+              f"device ms and {out[name]['refresh_kernels_per_tick']:.1f} "
+              f"device kernels a tick (mean {refresh['mean_ms']:.4f} ms a "
+              f"kernel); device busy {prof['device_busy_ms']} ms of "
+              f"{prof['wall_ms']:.3f} ms wall, "
+              f"{prof['device_kernels_per_tick']:.1f} device kernels a tick")
     record["long_horizon"] = out
     return out
 
@@ -889,7 +947,7 @@ def profile_window(run, n=10):
                                               "admm_segment_streamed_kernel",
                                               "admm_segment_wide_kernel")),
                             ("woodbury_ns", ("woodbury_ns_kernel",
-                                             "woodbury_ns_general_kernel"))):
+                                             "woodbury_ns_general_"))):
             if any(m in ev.key for m in marks):
                 k = ours.setdefault(name, dict(calls=0, total_ms=0.0))
                 k["calls"] += ev.count
@@ -2634,9 +2692,14 @@ def main():
     print(f"[build] nvcc {record['build_s']:.2f} s for "
           f"{sorted(reports) or 'nothing (already built)'}")
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+            if "spill stores" in line and " 0 bytes spill stores" not in line:
+                print(f"[build] {name}:   (in {entry})")
 
     rows = phase_kernels(K, dev, record)
     seg = phase_segments(K, record)

@@ -72,26 +72,64 @@
 //   the gathered operand [P, P] (P = 128) or [R, P] (P = 256)
 // with n8, n4 = n rounded up to 8, 4; T and the K strip only for n_ns > 0.
 //
-// The general route (any P, any box; ops/kernels.woodbury_plan
-// sends it the shapes the tuned routes do not take, such as a control
-// horizon of 13 with joint limits: P = 256, n_box 132). A simple design that
-// is right first: one block of 256 threads a scenario, the intermediates X,
-// W or K, and 2I − KX in a per-scenario device scratch [3, P, P] that the
-// wrapper allocates on the launch's stream, products as 64 × 64 output tiles
-// (4 × 4 a thread, 32-deep shared-memory tiles, masked at ragged edges), the
-// association and rounding of the plain version step for step. The
-// Gauss–Jordan elimination runs in place on [n, n] with the plain version's
-// rounding (division by the pivot, a rounded product subtracted), in shared
-// memory while it fits (n ≤ 231) and in the scratch beyond (n = 528 at
-// P = 640: 528 steps over 1.1 MB on one SM, timed in PERF.md). Bound: as
-// the tuned routes; at B = 1 only one SM works. No padded size is refused:
-// what caps P is device memory, the scratch's 12·P² bytes a scenario beside
-// the 12·P² of K⁻¹, H and the result (every index into a matrix is a size_t
-// product).
+// The general route (any P a multiple of 128, any box; ops/kernels
+// .woodbury_plan sends it the shapes the tuned routes do not take, such as a
+// control horizon of 13 with joint limits: P = 256, n_box 132). It replaces
+// the same TPU kernel, ironcub_mpc_tpu/ops/pallas_solve.py:276
+// (`woodbury_ns`, body `_woodbury_kernel` at :200), in the rank-n form of
+// the plain twin ops/kernels.woodbury_ns_plain, in 4 + 2·n_ns launches a
+// call (one call of the wrapper) over a per-scenario device scratch that the
+// wrapper allocates on the launch's stream (G [n, n32] with its rows padded
+// to 32, then W [n, P], or two [P, P] buffers with Newton–Schulz steps; the
+// last X lands in the output):
+//
+// 1. The elimination G = M⁻¹, M = I + d_box ⊙ X₀[box, box]: n steps, each
+//    a barrier after n² updates. Bound by the latency of a step, not by
+//    bytes or operations (2n³ is 0.07 µs of an H100 at n = 132): on one SM
+//    the previous design's 132 steps took most of its 1.07 ms at n = 132,
+//    and at n = 528 its matrix left shared memory. So the rows are spread
+//    over a cluster of up to 8 blocks, each holding its strip in its
+//    shared memory (M up to n = 672; beyond, the strips stay in the
+//    scratch, the same cluster eliminating them); a step ends on one
+//    cluster barrier, and the warp that finishes the next pivot row divides
+//    it by its pivot once and writes it into every block's shared memory
+//    (distributed shared memory) before that barrier, so that no block
+//    waits on a remote read. What is left is the barrier and that warp's
+//    row, ~1.4 µs a step on an H100 (PERF.md); the plan spreads a lone
+//    scenario over 8 blocks and a batch over as many as keep two blocks an
+//    SM.
+// 2. The products W = G·(d_box ⊙ X₀[box, :]) [n, P], X = X₀ − X₀[:, box]·W,
+//    and per Newton–Schulz step F = 2I − K·X, X ← X·F: 2n²P + 2P²n + 4P³
+//    operations, bound by operations (float32 FMA on the CUDA cores; no
+//    TF32, no library GEMM). Each is a launch over (scenario, output tile)
+//    with T × T tiles, T = 32 where B · (P / 64)² blocks of 64 would not
+//    fill the card's 132 SMs (64 blocks at P = 256, B = 1) and 64 beyond:
+//    8 × 16 threads, 4 × 2 or 8 × 4 outputs a thread, 32-deep stages of A
+//    and B copied with cp.async and double-buffered. K = H + σI + diag(ρ)
+//    is formed on A's diagonal as a stage lands and never stored, and so is
+//    d_box ⊙ X₀[box, :] in B's rows.
+// 3. out = ½(X + Xᵀ): bound by bytes (P² in, P² out); pairs of mirror
+//    32 × 32 tiles through shared memory, coalesced both ways.
+//
+// Every entry keeps the plain version's rounding step for step, and the
+// previous design's association: the elimination divides by the clamped
+// pivot and subtracts a rounded product; each product entry is one fmaf
+// chain over the whole depth in ascending order, from 0. So K is not split
+// (a split sum would round otherwise, and the card's 1e-5 and the
+// emulator's 2e-6 with exact symmetry hold as before). The stages meet at
+// kernel boundaries, not at a grid-wide barrier: a cooperative kernel's
+// grid.sync() would deadlock the CPU stand-in of tests/cuda_emu, which runs
+// a grid one cluster at a time, and the route's logic would lose its only
+// test off the card. No padded size is refused: device memory caps P (the
+// scratch's 8·P² bytes a scenario beside the 12·P² of K⁻¹, H and the
+// result; every index into a matrix is a size_t product).
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -728,212 +766,490 @@ cudaError_t launch(const float* kinv, const float* h, const float* d,
 // The general route: every shape the two tuned routes above do not take
 // ---------------------------------------------------------------------------
 
-constexpr int kGenTile = 64;              // output tile edge
-constexpr int kGenDepth = 32;             // depth of a shared-memory tile
-constexpr int kGenLdA = kGenTile + 1;     // padded row of the A tile
-constexpr int kGenTileFloats = kGenDepth * kGenLdA + kGenDepth * kGenTile;
+constexpr int kGenThreads = 128;  // a product block: 8 × 16 register tiles
+constexpr int kGenDepth = 32;     // depth of one staged pair of tiles
+constexpr int kGenPad = 4;        // floats after each row of a staged A tile
+constexpr int kGjThreads = 256;   // an elimination block
+constexpr int kGjGroup = 8;       // its chunks of 32 columns loaded at once
+constexpr int kSymTile = 32;      // the symmetrisation: 32 × 32 tiles,
+constexpr int kSymRows = 8;       // 32 × 8 threads
 
 enum Epilogue { kStore = 0, kSubFromBase = 1, kTwoIMinus = 2 };
+enum Prologue { kPlain = 0, kScaleB = 1, kKFromH = 2 };
 
-// floats of the pivot row and column, each rounded up to 4
-__host__ __device__ constexpr int general_vec_floats(int n) {
-  return 2 * ((n + 3) / 4 * 4);
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+
+// floats of one stage of a product block: A [T, depth + pad], B [depth, T]
+__host__ __device__ constexpr int gen_stage_floats(int T) {
+  return T * (kGenDepth + kGenPad) + kGenDepth * T;
 }
 
-// whether the in-place Gauss–Jordan matrix [n, n] fits shared memory beside
-// the product tiles and the pivot vectors (n ≤ 231)
-__host__ __device__ inline bool general_gj_in_smem(int n) {
-  const long floats = static_cast<long>(kGenTileFloats) +
-                      general_vec_floats(n) + static_cast<long>(n) * n;
-  return 4 * floats <= kMaxSmem;
+// shared memory (floats) of one elimination block of a cluster of C: the
+// scaled pivot row, double-buffered [2][n32], the pivot column's entries of
+// the strip [2][R4] and, where it lives there, the strip of M itself
+// [R, n32]; R = ⌈n / C⌉ rows a block, n32 = n rounded up to 32
+__host__ __device__ inline long gj_smem_floats(int n, int C, bool in_smem) {
+  const int R = (n + C - 1) / C;
+  return 2L * round32(n) + 2L * round4(R) +
+         (in_smem ? static_cast<long>(R) * round32(n) : 0L);
 }
 
-__host__ __device__ inline int general_smem_floats(int n) {
-  return kGenTileFloats + general_vec_floats(n) +
-         (general_gj_in_smem(n) ? n * n : 0);
+// device scratch of one scenario: G [n, n32] (its rows padded to 32), then
+// W [n, P] for n_ns = 0, or two [P, P] buffers for n_ns > 0 (W and later
+// 2I − K·X in the first, the X that is not in the output in the second)
+__host__ __device__ inline long general_g_floats(int n) {
+  return static_cast<long>(n) * round32(n);
 }
 
-// device scratch of one scenario: X, W or K, 2I − KX [3, P, P], and the
-// Gauss–Jordan matrix [n, n] when shared memory cannot hold it
-__host__ __device__ inline long general_scratch_floats(int P, int n) {
-  return 3L * P * P + (general_gj_in_smem(n) ? 0 : static_cast<long>(n) * n);
+__host__ __device__ inline long general_scratch_floats(int P, int n, int n_ns) {
+  return general_g_floats(n) +
+         (n_ns > 0 ? 2L * P * P : static_cast<long>(n) * P);
 }
 
-// C = epi(A·diag?·B) for an [M, K] A and a [K, N] B (any M, N, K), both in
-// device memory, by the whole block: 64 × 64 output tiles, 4 × 4 a thread,
-// 32-deep shared-memory tiles, the depth summed in ascending order. With
-// `bscale`, row k of B is taken as bscale[k]·B[k, :], each product rounded
-// as the plain version rounds d ⊙ K⁻¹. kSubFromBase stores base − A·B,
-// kTwoIMinus 2I − A·B.
-template <int EPI>
-__device__ void general_matmul(const float* A, int lda, const float* B,
-                               int ldb, const float* bscale, float* C,
-                               int ldc, const float* base, int M, int N,
-                               int K, float* sA, float* sB) {
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  for (int m0 = 0; m0 < M; m0 += kGenTile) {
-    for (int n0 = 0; n0 < N; n0 += kGenTile) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-      for (int k0 = 0; k0 < K; k0 += kGenDepth) {
-        for (int e = tid; e < kGenTile * kGenDepth; e += kThreads) {
-          const int m = e / kGenDepth, k = e % kGenDepth;
-          const bool in = m0 + m < M && k0 + k < K;
-          sA[k * kGenLdA + m] =
-              in ? A[static_cast<size_t>(m0 + m) * lda + k0 + k] : 0.0f;
-        }
-        for (int e = tid; e < kGenDepth * kGenTile; e += kThreads) {
-          const int k = e / kGenTile, c = e % kGenTile;
-          float v = 0.0f;
-          if (k0 + k < K && n0 + c < N) {
-            v = B[static_cast<size_t>(k0 + k) * ldb + n0 + c];
-            if (bscale != nullptr) v = __fmul_rn(bscale[k0 + k], v);
-          }
-          sB[k * kGenTile + c] = v;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < kGenDepth; ++k) {
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = sA[k * kGenLdA + tr * 4 + i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = sB[k * kGenTile + tc * 4 + j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = m0 + tr * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = n0 + tc * 4 + j;
-          if (r < M && c < N) {
-            float v = acc[i][j];
-            const size_t rc = static_cast<size_t>(r) * ldc + c;
-            if (EPI == kSubFromBase) v = base[rc] - v;
-            if (EPI == kTwoIMinus) v = (r == c ? 2.0f : 0.0f) - v;
-            C[rc] = v;
-          }
-        }
+// One product C[M, N] = epi(pre(A)·pre(B)) for every scenario b, each
+// operand at its pointer + b · its stride; C's rows are N apart and N is a
+// multiple of the tile edge. `aux` is B's row scale (kScaleB), ρ_new for K's
+// diagonal (kKFromH) or the base of kSubFromBase.
+struct Product {
+  const float* a;
+  long a_stride;
+  int lda;
+  const float* b;
+  long b_stride;
+  int ldb;
+  float* c;
+  long c_stride;
+  const float* aux;
+  long aux_stride;
+  int M, N, K;
+  float sigma;
+};
+
+// The thread's share of one stage: A rows [m0, m0 + T) × depth [k0, k0 + 32)
+// and B depth rows × columns [n0, n0 + T), by cp.async, 16 bytes a copy
+// where the source allows (4 where A's rows are not 16-byte aligned), zeros
+// beyond M and K. One commit group a call.
+template <int T>
+__device__ __forceinline__ void stage_tiles(float* sa, float* sb,
+                                            const Product& g, const float* A,
+                                            const float* B, int m0, int n0,
+                                            int k0, bool avec, int tid) {
+  constexpr int LDA = kGenDepth + kGenPad;
+  for (int e = tid; e < T * kGenDepth / 4; e += kGenThreads) {
+    const int m = e / (kGenDepth / 4), k = 4 * (e % (kGenDepth / 4));
+    const int r = m0 + m, kk = k0 + k;
+    float* dst = sa + m * LDA + k;
+    const float* src = A + static_cast<size_t>(r) * g.lda + kk;
+    if (avec && r < g.M && kk + 3 < g.K) {
+      __pipeline_memcpy_async(dst, src, 16);
+    } else {
+      for (int q = 0; q < 4; ++q) {
+        if (r < g.M && kk + q < g.K)
+          __pipeline_memcpy_async(dst + q, src + q, 4);
+        else
+          dst[q] = 0.0f;
       }
     }
   }
-  __syncthreads();
+  for (int e = tid; e < kGenDepth * T / 4; e += kGenThreads) {
+    const int k = e / (T / 4), c = 4 * (e % (T / 4));
+    float* dst = sb + k * T + c;
+    if (k0 + k < g.K)
+      __pipeline_memcpy_async(
+          dst, B + static_cast<size_t>(k0 + k) * g.ldb + n0 + c, 16);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __pipeline_commit();
 }
 
-// G = M⁻¹ in place on A [n, n] (shared or device memory): the elimination
-// of the plain version on [M | I], no pivoting, where column i of the
-// in-place form holds the right half's column i from step i on. Each step
-// rounds as the plain version does: the pivot row divided by the clamped
-// pivot, the update a rounded product subtracted.
-__device__ void general_gauss_jordan(float* A, int n, float* prow,
-                                     float* pcol) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  constexpr int kWarps = kThreads / 32;
-  for (int i = 0; i < n; ++i) {
-    const float* Ai = A + static_cast<size_t>(i) * n;
-    const float piv = clamp_pivot(Ai[i]);
-    for (int c = tid; c < n; c += kThreads)
-      prow[c] = (c == i ? 1.0f : Ai[c]) / piv;
-    for (int r = tid; r < n; r += kThreads)
-      pcol[r] = A[static_cast<size_t>(r) * n + i];
-    __syncthreads();
-    for (int r = warp; r < n; r += kWarps) {
-      float* row = A + static_cast<size_t>(r) * n;
-      if (r == i) {
-        for (int c = lane; c < n; c += 32) row[c] = prow[c];
-      } else {
-        const float cr = pcol[r];
-        for (int c = lane; c < n; c += 32)
-          row[c] = (c == i ? 0.0f : row[c]) - __fmul_rn(cr, prow[c]);
+// What the plain version rounds before a product, applied by each thread to
+// its own copies of the stage once they have landed: B's rows scaled by
+// d_box (W's operand d ⊙ X₀[box, :]), or K = H + σI + diag(ρ_new) on the
+// diagonal entries of A's tile (K itself is never stored).
+template <int T, int PRE>
+__device__ __forceinline__ void prologue(float* sa, float* sb,
+                                         const Product& g, const float* aux,
+                                         int m0, int k0, int tid) {
+  constexpr int LDA = kGenDepth + kGenPad;
+  if constexpr (PRE == kScaleB) {
+    for (int e = tid; e < kGenDepth * T / 4; e += kGenThreads) {
+      const int k = e / (T / 4), c = 4 * (e % (T / 4));
+      if (k0 + k < g.K) {
+        float4& v = *reinterpret_cast<float4*>(sb + k * T + c);
+        const float s = aux[k0 + k];
+        v = make_float4(__fmul_rn(s, v.x), __fmul_rn(s, v.y),
+                        __fmul_rn(s, v.z), __fmul_rn(s, v.w));
       }
     }
-    __syncthreads();
+  } else if constexpr (PRE == kKFromH) {
+    if (m0 >= k0 + kGenDepth || k0 >= m0 + T) return;  // no diagonal here
+    for (int e = tid; e < T * kGenDepth / 4; e += kGenThreads) {
+      const int m = e / (kGenDepth / 4), k = 4 * (e % (kGenDepth / 4));
+      const int r = m0 + m, q = r - (k0 + k);
+      if (q >= 0 && q < 4 && r < g.M) {
+        float& v = sa[m * LDA + k + q];
+        v = (v + g.sigma) + aux[r];
+      }
+    }
   }
 }
 
-// One block per scenario, intermediates in a per-scenario device scratch
-// (see general_scratch_floats), the products as general_matmul tiles:
-//   M = I + d_box ⊙ X₀[box, box];  G = M⁻¹           (Gauss–Jordan)
-//   W = G·(d_box ⊙ X₀[box, :]);    X = X₀ − X₀[:, box]·W
-//   n_ns times: K = H + σI + diag(ρ_new);  X ← X·(2I − K·X)
-//   out = ½(X + Xᵀ)
-// the association of the plain version, step for step.
-__global__ void __launch_bounds__(kThreads) woodbury_ns_general_kernel(
-    const float* __restrict__ kinv, const float* __restrict__ h,
-    const float* __restrict__ dvec, const float* __restrict__ rho,
-    float* __restrict__ out, float* __restrict__ scratch, int P, int box0,
-    int n, float sigma, int n_ns) {
+// TN consecutive floats of a row of B's staged tile
+template <int TN>
+__device__ __forceinline__ void load_row(float (&v)[TN], const float* p) {
+  if constexpr (TN == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  }
+}
+
+// The products of the general route, a launch over (scenario, output tile):
+// T × T tiles, thread (ty, tx) of the 8 × 16 grid owns rows ty·TM .. + TM − 1
+// and columns tx·TN .. + TN − 1 (8 × 4 at T = 64, 4 × 2 at T = 32), A read
+// as one float4 along the depth per row, B as TN floats per depth step.
+// Stages of 32 are double-buffered: the next one's copies are in flight
+// while this one is multiplied. Every output entry is one fmaf chain over
+// the whole depth in ascending order, from 0, as the previous design took
+// it; the epilogue stores it, subtracts it from the base (X₀ − X₀[:, box]·W)
+// or from 2I (2I − K·X).
+template <int T, int EPI, int PRE>
+__global__ void __launch_bounds__(kGenThreads)
+woodbury_ns_general_product(const Product g) {
+  constexpr int TM = T / 8, TN = T / 16, LDA = kGenDepth + kGenPad;
+  constexpr int kStage = gen_stage_floats(T);
   float* smem = dyn_smem();
-  float* sA = smem;
-  float* sB = sA + kGenDepth * kGenLdA;
-  float* prow = smem + kGenTileFloats;
-  float* pcol = prow + general_vec_floats(n) / 2;
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x;
-  const size_t PP = static_cast<size_t>(P) * P;
-  const float* Ki = kinv + b * PP;
-  const float* Hb = h + b * PP;
-  const float* d = dvec + static_cast<size_t>(b) * P;
-  const float* rh = rho + static_cast<size_t>(b) * P;
-  float* S0 = scratch + b * general_scratch_floats(P, n);
-  float* S1 = S0 + PP;
-  float* S2 = S1 + PP;
-  float* gj = general_gj_in_smem(n) ? prow + general_vec_floats(n) : S2 + PP;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tiles_n = g.N / T, tiles = (g.M + T - 1) / T * tiles_n;
+  const int bb = blockIdx.x / tiles, t = blockIdx.x % tiles;
+  const int m0 = t / tiles_n * T, n0 = t % tiles_n * T;
+  const float* A = g.a + bb * g.a_stride;
+  const float* B = g.b + bb * g.b_stride;
+  const float* aux = g.aux + bb * g.aux_stride;
+  const bool avec =
+      g.lda % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  const int nk = (g.K + kGenDepth - 1) / kGenDepth;
 
-  // 1. M, rounded as capacitance() rounds it, then G = M⁻¹ in place
-  for (int r = tid / 32; r < n; r += kThreads / 32)
-    for (int c = tid % 32; c < n; c += 32)
-      gj[static_cast<size_t>(r) * n + c] =
-          (r == c ? 1.0f : 0.0f) +
-          __fmul_rn(d[box0 + r],
-                    Ki[static_cast<size_t>(box0 + r) * P + box0 + c]);
-  __syncthreads();
-  general_gauss_jordan(gj, n, prow, pcol);
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  // 2. W [n, P] into S1, X into S0
-  general_matmul<kStore>(gj, n, Ki + static_cast<size_t>(box0) * P, P,
-                         d + box0, S1, P, nullptr, n, P, n, sA, sB);
-  general_matmul<kSubFromBase>(Ki + box0, P, S1, P, nullptr, S0, P, Ki, P, P,
-                               n, sA, sB);
-
-  // 3. Newton–Schulz: K into the free buffer, 2I − K·X into S2, X·(2I − KX)
-  // over K
-  float* X = S0;
-  float* F = S1;
-  for (int s = 0; s < n_ns; ++s) {
-    for (size_t e = tid; e < PP; e += kThreads) {
-      const int r = static_cast<int>(e / P), c = static_cast<int>(e % P);
-      float kv = Hb[e];
-      if (r == c) kv = kv + sigma + rh[r];
-      F[e] = kv;
+  stage_tiles<T>(smem, smem + T * LDA, g, A, B, m0, n0, 0, avec, tid);
+  for (int kt = 0; kt < nk; ++kt) {
+    float* sa = smem + (kt & 1) * kStage;
+    float* sb = sa + T * LDA;
+    if (kt + 1 < nk) {
+      float* na = smem + ((kt + 1) & 1) * kStage;
+      stage_tiles<T>(na, na + T * LDA, g, A, B, m0, n0, (kt + 1) * kGenDepth,
+                     avec, tid);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
     }
+    prologue<T, PRE>(sa, sb, g, aux, m0, kt * kGenDepth, tid);
     __syncthreads();
-    general_matmul<kTwoIMinus>(F, P, X, P, nullptr, S2, P, nullptr, P, P, P,
-                               sA, sB);
-    general_matmul<kStore>(X, P, S2, P, nullptr, F, P, nullptr, P, P, P, sA,
-                           sB);
-    float* t = X;
-    X = F;
-    F = t;
+    const float* a_row = sa + ty * TM * LDA;
+    const float* b_col = sb + tx * TN;
+#pragma unroll 2
+    for (int k = 0; k < kGenDepth; k += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(a_row + i * LDA + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float bv[TN];
+        load_row<TN>(bv, b_col + (k + kk) * T);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = reinterpret_cast<const float*>(&a[i])[kk];
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();  // the next stage's copies go over this one
   }
 
-  // 4. out = ½(X + Xᵀ)
-  float* o = out + b * PP;
-  for (size_t e = tid; e < PP; e += kThreads) {
-    const int r = static_cast<int>(e / P), c = static_cast<int>(e % P);
-    o[e] = 0.5f * (X[e] + X[static_cast<size_t>(c) * P + r]);
+  float* C = g.c + bb * g.c_stride;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + ty * TM + i, c0 = n0 + tx * TN;
+    if (r >= g.M) continue;
+    const size_t rc = static_cast<size_t>(r) * g.N + c0;
+    float v[TN];
+    if (EPI == kSubFromBase) load_row<TN>(v, aux + rc);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (EPI == kSubFromBase) v[j] = v[j] - acc[i][j];
+      else if (EPI == kTwoIMinus) v[j] = (r == c0 + j ? 2.0f : 0.0f) - acc[i][j];
+      else v[j] = acc[i][j];
+    }
+    if constexpr (TN == 4)
+      *reinterpret_cast<float4*>(C + rc) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<float2*>(C + rc) = make_float2(v[0], v[1]);
   }
+}
+
+__device__ __forceinline__ void block_or_cluster_sync(int C) {
+  if (C == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();
+  }
+}
+
+// One step of the elimination on kCh chunks of 32 columns of a row, from
+// chunk q0 on: lane l takes columns l + 32·(q0 + u), u < kCh, loads them
+// all, then writes a − cr · prow, rounded as the plain version (the entry
+// in the pivot column was zeroed first). kCh is a compile-time count, so no
+// entry is guarded (rows are padded to 32).
+template <int kCh>
+__device__ __forceinline__ void gj_update_chunks(float* row, const float* prow,
+                                                 float cr, int q0, int lane) {
+  float v[kCh], p[kCh];
+#pragma unroll
+  for (int u = 0; u < kCh; ++u) {
+    v[u] = row[lane + 32 * (q0 + u)];
+    p[u] = prow[lane + 32 * (q0 + u)];
+  }
+#pragma unroll
+  for (int u = 0; u < kCh; ++u)
+    row[lane + 32 * (q0 + u)] = v[u] - __fmul_rn(cr, p[u]);
+}
+
+// kCh chunks of a row divided by the pivot `piv` (column `col` of the row),
+// written into `dst` in each of the C blocks of the cluster (the padding
+// divides to zero)
+template <int kCh>
+__device__ __forceinline__ void gj_scale_chunks(float* dst, const float* row,
+                                                float piv, int q0, int lane,
+                                                int col, int C) {
+  float v[kCh];
+#pragma unroll
+  for (int u = 0; u < kCh; ++u) {
+    const int c = lane + 32 * (q0 + u);
+    v[u] = (c == col ? 1.0f : row[c]) / piv;
+  }
+  for (int k = 0; k < C; ++k) {
+    float* to = C == 1 ? dst : cg::this_cluster().map_shared_rank(dst, k);
+#pragma unroll
+    for (int u = 0; u < kCh; ++u) to[lane + 32 * (q0 + u)] = v[u];
+  }
+}
+
+// `chunks` chunks of 32 columns, kGjGroup at a time, then the rest in one
+// group of a compile-time size
+template <class F>
+__device__ __forceinline__ void gj_by_groups(int chunks, F&& f) {
+  int q0 = 0;
+  for (; q0 + kGjGroup <= chunks; q0 += kGjGroup)
+    f(q0, std::integral_constant<int, kGjGroup>());
+  switch (chunks - q0) {
+    case 1: f(q0, std::integral_constant<int, 1>()); break;
+    case 2: f(q0, std::integral_constant<int, 2>()); break;
+    case 3: f(q0, std::integral_constant<int, 3>()); break;
+    case 4: f(q0, std::integral_constant<int, 4>()); break;
+    case 5: f(q0, std::integral_constant<int, 5>()); break;
+    case 6: f(q0, std::integral_constant<int, 6>()); break;
+    case 7: f(q0, std::integral_constant<int, 7>()); break;
+    default: break;
+  }
+}
+
+// G = M⁻¹, M = I + d_box ⊙ X₀[box, box], into the scenario's scratch, on a
+// cluster of C blocks (C = 1: one block): the plain version's elimination on
+// [M | I], no pivoting, in place, column i of the in-place form holding the
+// right half's column i from step i on, each entry rounded as there (the
+// pivot row divided by the clamped pivot, a rounded product subtracted).
+// Block `rank` holds rows [rank·R, rank·R + R) of M, padded with zeros to
+// n32 = n rounded up to 32 columns, in its shared memory or, where the
+// cluster's cannot hold the matrix, in G itself; a warp updates whole
+// rows, lane l their columns l, l + 32, ..., in groups of up to eight
+// chunks whose loads are in flight together, with no branch per
+// entry. Step i reads the scaled pivot row from the block's own shared
+// memory, updates, and ends on one cluster barrier: the lane that holds
+// column i + 1 of a row keeps its new entry as step i + 1's pivot column,
+// and in the block that holds row i + 1 one warp updates that row alone,
+// divides it by its clamped pivot and writes it into the other half of
+// every block's double-buffered pivot row (distributed shared memory),
+// while the other seven warps share the block's other rows. No step reads
+// what it writes, and an entry does not depend on which block or warp
+// updates its row.
+template <bool kInSmem>
+__global__ void __launch_bounds__(kGjThreads)
+woodbury_ns_general_gauss_jordan(const float* __restrict__ kinv,
+                                 const float* __restrict__ dvec,
+                                 float* __restrict__ scratch, long stride,
+                                 int P, int box0, int n, int C) {
+  constexpr int kWarps = kGjThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = blockIdx.x % C, b = blockIdx.x / C;
+  const int R = (n + C - 1) / C, row0 = rank * R;
+  const int rows = max(0, min(R, n - row0));
+  const int n32 = round32(n), R4 = round4(R), chunks = n32 / 32;
+  float* prows = dyn_smem();      // [2][n32], a step's scaled pivot row
+  float* pcol = prows + 2 * n32;  // [2][R4], the strip's pivot column
+  float* G = scratch + b * stride;
+  float* A = kInSmem ? pcol + 2 * R4 : G + static_cast<size_t>(row0) * n32;
+  const float* Ki = kinv + b * static_cast<size_t>(P) * P;
+  const float* d = dvec + static_cast<size_t>(b) * P;
+
+  // row r of the strip divided by its clamped pivot, the entry in column
+  // `col`, into every block's `dst`, by the warp that wrote the row
+  auto scale_row = [&](int r, int col, float* dst) {
+    __syncwarp();
+    const float* row = A + static_cast<size_t>(r) * n32;
+    const float piv = clamp_pivot(row[col]);
+    gj_by_groups(chunks, [&](int q0, auto ch) {
+      gj_scale_chunks<decltype(ch)::value>(dst, row, piv, q0, lane, col, C);
+    });
+  };
+
+  for (int e = tid; e < rows * n32; e += kGjThreads) {
+    const int r = e / n32, c = e % n32, gr = row0 + r;
+    float v = 0.0f;
+    if (c < n)
+      v = (gr == c ? 1.0f : 0.0f) +
+          __fmul_rn(d[box0 + gr],
+                    Ki[static_cast<size_t>(box0 + gr) * P + box0 + c]);
+    A[e] = v;
+    if (c == 0) pcol[r] = v;
+  }
+  block_or_cluster_sync(C);  // every block runs before any writes to it
+  if (rank == 0 && warp == 0) scale_row(0, 0, prows);
+  block_or_cluster_sync(C);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    const float* prow = prows + s * n32;
+    const float* pc = pcol + s * R4;
+    float* next_col = pcol + (s ^ 1) * R4;
+    const int r1 = i + 1 - row0, ri = i - row0;
+    const bool col_lane = (i + 1 < n) && lane == ((i + 1) & 31);
+    auto step_row = [&](int r) {
+      float* row = A + static_cast<size_t>(r) * n32;
+      if (r == ri) {
+        for (int c = lane; c < n32; c += 32) row[c] = prow[c];
+      } else {
+        const float cr = pc[r];
+        if (lane == (i & 31)) row[i] = 0.0f;
+        gj_by_groups(chunks, [&](int q0, auto ch) {
+          gj_update_chunks<decltype(ch)::value>(row, prow, cr, q0, lane);
+        });
+      }
+      if (col_lane) next_col[r] = row[i + 1];
+    };
+    if (r1 >= 0 && r1 < rows) {
+      // one warp takes row i + 1 alone and scales it; the other seven
+      // share the rest of the strip
+      const int w1 = r1 % kWarps;
+      if (warp == w1) {
+        step_row(r1);
+        scale_row(r1, i + 1, prows + (s ^ 1) * n32);
+      } else {
+        for (int j = (warp - w1 - 1 + kWarps) % kWarps; j < rows - 1;
+             j += kWarps - 1)
+          step_row(j + (j >= r1));
+      }
+    } else {
+      for (int r = warp; r < rows; r += kWarps) step_row(r);
+    }
+    block_or_cluster_sync(C);
+  }
+  if (kInSmem) {
+    float* g = G + static_cast<size_t>(row0) * n32;
+    for (int e = tid; e < rows * n32; e += kGjThreads) g[e] = A[e];
+  }
+}
+
+// out = ½(X + Xᵀ) in place, one pair of mirror tiles (I, J), I ≤ J, a block:
+// both read row by row (coalesced) into shared memory, the means written
+// back row by row; the transposed reads go down a column of a tile padded
+// to 33, so they meet no bank twice. The two means of a pair are the same
+// sum, so the output is exactly symmetric.
+__global__ void __launch_bounds__(kSymTile * kSymRows)
+woodbury_ns_general_symmetrise(float* __restrict__ out, int P) {
+  constexpr int LD = kSymTile + 1;
+  const int nt = P / kSymTile, pairs = nt * (nt + 1) / 2;
+  const int b = blockIdx.x / pairs;
+  int p = blockIdx.x % pairs, I = 0;
+  while (p >= nt - I) {
+    p -= nt - I;
+    ++I;
+  }
+  const int J = I + p;
+  const int tx = threadIdx.x % kSymTile, ty = threadIdx.x / kSymTile;
+  float* X = out + b * static_cast<size_t>(P) * P;
+  float* xij = X + static_cast<size_t>(kSymTile * I) * P + kSymTile * J;
+  float* xji = X + static_cast<size_t>(kSymTile * J) * P + kSymTile * I;
+  float* t1 = dyn_smem();
+  float* t2 = t1 + kSymTile * LD;
+  for (int r = ty; r < kSymTile; r += kSymRows) {
+    t1[r * LD + tx] = xij[static_cast<size_t>(r) * P + tx];
+    t2[r * LD + tx] = xji[static_cast<size_t>(r) * P + tx];
+  }
+  __syncthreads();
+  for (int r = ty; r < kSymTile; r += kSymRows) {
+    xij[static_cast<size_t>(r) * P + tx] =
+        0.5f * (t1[r * LD + tx] + t2[tx * LD + r]);
+    if (I != J)
+      xji[static_cast<size_t>(r) * P + tx] =
+          0.5f * (t2[r * LD + tx] + t1[tx * LD + r]);
+  }
+}
+
+template <int T, int EPI, int PRE>
+cudaError_t launch_product_tile(const Product& g, int B, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * ((g.M + T - 1) / T) * (g.N / T));
+  cfg.blockDim = dim3(kGenThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * 2 * gen_stage_floats(T);
+  cfg.stream = stream;
+  return cudaLaunchKernelEx(&cfg, woodbury_ns_general_product<T, EPI, PRE>,
+                            g);
+}
+
+template <int EPI, int PRE>
+cudaError_t launch_product(const Product& g, int B, int tile,
+                           cudaStream_t stream) {
+  return tile == 32 ? launch_product_tile<32, EPI, PRE>(g, B, stream)
+                    : launch_product_tile<64, EPI, PRE>(g, B, stream);
+}
+
+cudaError_t launch_gauss_jordan(const float* kinv, const float* d,
+                                float* scratch, long stride, int B, int P,
+                                int box0, int n, int C, bool in_smem,
+                                cudaStream_t stream) {
+  const size_t smem = sizeof(float) * gj_smem_floats(n, C, in_smem);
+  void (*kernel)(const float*, const float*, float*, long, int, int, int,
+                 int) = in_smem ? woodbury_ns_general_gauss_jordan<true>
+                                : woodbury_ns_general_gauss_jordan<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C);
+  cfg.blockDim = dim3(kGjThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, kinv, d, scratch, stride, P, box0,
+                            n, C);
 }
 
 }  // namespace
@@ -963,38 +1279,88 @@ extern "C" int woodbury_ns_launch(const float* kinv, const float* h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The general route's dynamic shared memory in bytes and its device scratch
-// in floats per scenario.
-extern "C" int woodbury_ns_general_smem_bytes(int n_box) {
-  return 4 * general_smem_floats(n_box);
+// The general route's shared memory in bytes: a product block at tile edge
+// `tile`, an elimination block of a cluster of `cluster` (with the matrix in
+// shared memory or not); and its device scratch in floats per scenario.
+extern "C" int woodbury_ns_general_product_smem_bytes(int tile) {
+  return 4 * 2 * gen_stage_floats(tile);
 }
 
-extern "C" long woodbury_ns_general_scratch_floats(int P, int n_box) {
-  return general_scratch_floats(P, n_box);
+extern "C" long woodbury_ns_general_gj_smem_bytes(int n_box, int cluster,
+                                                  int in_smem) {
+  return 4 * gj_smem_floats(n_box, cluster, in_smem != 0);
 }
 
-// `scratch` holds B · woodbury_ns_general_scratch_floats(P, n_box) floats
-// that no other launch in flight uses (the wrapper allocates it per call on
-// the launch's stream).
+extern "C" long woodbury_ns_general_scratch_floats(int P, int n_box,
+                                                   int n_ns) {
+  return general_scratch_floats(P, n_box, n_ns);
+}
+
+// `scratch` holds B · woodbury_ns_general_scratch_floats(P, n_box, n_ns)
+// floats that no other launch in flight uses (the wrapper allocates it per
+// call on the launch's stream). `tile` (32 or 64) is the products' tile
+// edge, `gj_cluster` (1, 2, 4 or 8) the blocks of the elimination's cluster
+// and `gj_in_smem` whether M lives in their shared memory
+// (ops/kernels.woodbury_plan chooses all three). 4 + 2·n_ns kernels:
+//   1. G = M⁻¹                                  (Gauss–Jordan, a cluster)
+//   2. W = G·(d_box ⊙ X₀[box, :])               [n, P]
+//   3. X = X₀ − X₀[:, box]·W                    [P, P]
+//   4. n_ns times: F = 2I − K·X, then X ← X·F   [P, P] each
+//   5. out = ½(X + Xᵀ), in place
+// The X of each step alternates between the output and the scratch so that
+// the last one lands in the output.
 extern "C" int woodbury_ns_general_launch(
     const float* kinv, const float* h, const float* d, const float* rho,
     float* out, float* scratch, int B, int P, int box0, int n_box,
-    float sigma, int n_ns, cudaStream_t stream) {
-  if (P < 1 || box0 < 0 || n_box < 1 || box0 + n_box > P || n_ns < 0)
+    float sigma, int n_ns, int tile, int gj_cluster, int gj_in_smem,
+    cudaStream_t stream) {
+  const int C = gj_cluster;
+  if (P < 1 || P % kSymTile || box0 < 0 || n_box < 1 || box0 + n_box > P ||
+      n_ns < 0 || (tile != 32 && tile != 64) || P % tile ||
+      (C != 1 && C != 2 && C != 4 && C != 8) ||
+      4 * gj_smem_floats(n_box, C, gj_in_smem != 0) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = sizeof(float) * general_smem_floats(n_box);
-  cudaError_t err = cudaFuncSetAttribute(
-      woodbury_ns_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const int n = n_box;
+  const long S = general_scratch_floats(P, n, n_ns);
+  const long PP = static_cast<long>(P) * P;
+  float* w = scratch + general_g_floats(n);  // W, then 2I − K·X
+  float* xa = w + PP;                        // the X that is not in `out`
+  cudaError_t err = launch_gauss_jordan(kinv, d, scratch, S, B, P, box0, n,
+                                        C, gj_in_smem != 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_product<kStore, kScaleB>(
+      Product{scratch, S, round32(n), kinv + static_cast<size_t>(box0) * P,
+              PP, P, w, S, d + box0, P, n, P, n, sigma},
+      B, tile, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* x = n_ns % 2 == 0 ? out : xa;
+  long xs = n_ns % 2 == 0 ? PP : S;
+  err = launch_product<kSubFromBase, kPlain>(
+      Product{kinv + box0, PP, P, w, S, P, x, xs, kinv, PP, P, P, n, sigma},
+      B, tile, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int s = 0; s < n_ns; ++s) {
+    err = launch_product<kTwoIMinus, kKFromH>(
+        Product{h, PP, P, x, xs, P, w, S, rho, P, P, P, P, sigma}, B, tile,
+        stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float* y = x == out ? xa : out;
+    const long ys = x == out ? S : PP;
+    err = launch_product<kStore, kPlain>(
+        Product{x, xs, P, w, S, P, y, ys, nullptr, 0, P, P, P, sigma}, B,
+        tile, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    x = y;
+    xs = ys;
+  }
+  const int nt = P / kSymTile;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(B * (nt * (nt + 1) / 2));
+  cfg.blockDim = dim3(kSymTile * kSymRows);
+  cfg.dynamicSmemBytes = sizeof(float) * 2 * kSymTile * (kSymTile + 1);
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, woodbury_ns_general_kernel, kinv, h, d, rho,
-                           out, scratch, P, box0, n_box, sigma, n_ns);
+  err = cudaLaunchKernelEx(&cfg, woodbury_ns_general_symmetrise, out, P);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

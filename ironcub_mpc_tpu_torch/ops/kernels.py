@@ -16,9 +16,11 @@ Counterpart of ``ironcub_mpc_tpu/ops/pallas_solve.py``:
 - :func:`woodbury_ns` replaces ``pallas_solve.woodbury_ns`` — the rank-n_box
   Woodbury ρ-refresh of K⁻¹ with its Gauss–Jordan capacitance inverse,
   Newton–Schulz steps and symmetrised output, a scenario on one thread block
-  or on a cluster of 8, or, for the shapes those do not take, on one block
-  with a device scratch (``csrc/woodbury_ns.cu``; :func:`woodbury_plan`
-  picks the route and the cluster size).
+  or on a cluster of 8, or, for the shapes those do not take, in 4 + 2·n_ns
+  launches with a device scratch: the products over (scenario, output
+  tile), the elimination on a cluster (``csrc/woodbury_ns.cu``;
+  :func:`woodbury_plan` picks the route and the cluster size,
+  :func:`woodbury_general_plan` the general route's launches).
 
 All take the full, lane-padded layout of the Pallas kernels with a leading
 batch dimension B: matrices [B, P, P], vectors [B, P] (P = 128 for the
@@ -133,15 +135,25 @@ def _lib(name: str):
             fn.argtypes = [p] * 5 + [i, i, i, i, f, i, i, p]
             lib.woodbury_ns_smem_bytes.restype = i
             lib.woodbury_ns_smem_bytes.argtypes = [i, i, i, i]
-            lib.woodbury_ns_general_launch.restype = i
-            lib.woodbury_ns_general_launch.argtypes = (
-                [p] * 6 + [i, i, i, i, f, i, p])
-            lib.woodbury_ns_general_smem_bytes.restype = i
-            lib.woodbury_ns_general_smem_bytes.argtypes = [i]
-            lib.woodbury_ns_general_scratch_floats.restype = ctypes.c_long
-            lib.woodbury_ns_general_scratch_floats.argtypes = [i, i]
+            _bind_general(lib)
         _libs[name] = lib
     return lib
+
+
+def _bind_general(lib):
+    """The general route's C interface of ``woodbury_ns.cu`` (built here
+    with nvcc, or for the CPU by tests/test_torch_kernels_emulated.py)."""
+    p, i, f, long_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_long
+    lib.woodbury_ns_general_launch.restype = i
+    lib.woodbury_ns_general_launch.argtypes = (
+        [p] * 6 + [i, i, i, i, f, i, i, i, i, p])
+    lib.woodbury_ns_general_product_smem_bytes.restype = i
+    lib.woodbury_ns_general_product_smem_bytes.argtypes = [i]
+    lib.woodbury_ns_general_gj_smem_bytes.restype = long_
+    lib.woodbury_ns_general_gj_smem_bytes.argtypes = [i, i, i]
+    lib.woodbury_ns_general_scratch_floats.restype = long_
+    lib.woodbury_ns_general_scratch_floats.argtypes = [i, i, i]
 
 
 def _check(tensors: dict, device, shapes: dict):
@@ -420,8 +432,6 @@ WOODBURY_CLUSTERS = {128: (1, 8), 256: (8,)}
 WOODBURY_MAX_BOX = LANE
 # floats beside the matrices: pivot rows and columns [2][2][128] and d [128]
 WOODBURY_VEC_FLOATS = 5 * LANE
-# the general route's product tiles in shared memory: A [32, 65], B [32, 64]
-WOODBURY_GENERAL_TILE_FLOATS = 32 * 65 + 32 * 64
 
 
 def woodbury_smem_bytes(n_box: int, n_ns: int = 1, cluster: int = 1,
@@ -446,26 +456,119 @@ def woodbury_smem_bytes(n_box: int, n_ns: int = 1, cluster: int = 1,
     return 4 * (rest + max(u, h))
 
 
-def _general_gj_in_smem(n_box: int) -> bool:
-    vec = 2 * (-(-n_box // 4) * 4)
-    return 4 * (WOODBURY_GENERAL_TILE_FLOATS + vec + n_box * n_box) <= MAX_SMEM
+# the general route (csrc/woodbury_ns.cu, kept in step by
+# tests/test_torch_kernels.py): product blocks of 8 × 16 threads over T × T
+# output tiles, T one of WOODBURY_GENERAL_TILES, staged 32 deep with rows of
+# A padded by 4 floats; elimination blocks of 256 threads on a cluster of
+# 1, 2, 4 or 8; the symmetrisation on 32 × 32 tiles by 32 × 8 threads
+WOODBURY_GENERAL_THREADS = 128
+WOODBURY_GENERAL_TILES = (32, 64)
+WOODBURY_GENERAL_DEPTH, WOODBURY_GENERAL_PAD = 32, 4
+WOODBURY_GJ_THREADS = 256
+WOODBURY_GJ_CLUSTERS = (1, 2, 4, 8)
+WOODBURY_SYM_TILE, WOODBURY_SYM_ROWS = 32, 8
+# the elimination of a box wider than this is spread over a cluster
+WOODBURY_GJ_SPREAD = 32
 
 
-def woodbury_general_smem_bytes(n_box: int) -> int:
-    """Dynamic shared memory of one block of the general route
-    (``general_smem_floats`` of csrc/woodbury_ns.cu): the product tiles,
-    the pivot row and column (n_box rounded up to 4 each) and, while it
-    fits (n_box ≤ 231), the Gauss–Jordan matrix [n_box, n_box]."""
-    vec = 2 * (-(-n_box // 4) * 4)
-    gj = n_box * n_box if _general_gj_in_smem(n_box) else 0
-    return 4 * (WOODBURY_GENERAL_TILE_FLOATS + vec + gj)
+def woodbury_general_product_smem_bytes(tile: int) -> int:
+    """Dynamic shared memory of one product block of the general route
+    (``gen_stage_floats`` of csrc/woodbury_ns.cu): two stages of an A tile
+    [tile, 32 + 4] and a B tile [32, tile]."""
+    d = WOODBURY_GENERAL_DEPTH
+    return 4 * 2 * (tile * (d + WOODBURY_GENERAL_PAD) + d * tile)
 
 
-def woodbury_general_scratch_floats(P: int, n_box: int) -> int:
+def woodbury_general_gj_smem_bytes(n_box: int, cluster: int,
+                                   in_smem: bool = True) -> int:
+    """Dynamic shared memory of one elimination block of a cluster of
+    ``cluster`` (``gj_smem_floats``): the scaled pivot row, double-buffered
+    [2, n32], the strip's pivot column [2, R4] and, ``in_smem``, the strip
+    of M [R, n32]; R = ⌈n_box / cluster⌉ rows a block, n32 = n_box rounded
+    up to 32, R4 to 4."""
+    R = -(-n_box // cluster)
+    n32 = -(-n_box // 32) * 32
+    return 4 * (2 * n32 + 2 * (-(-R // 4) * 4) + (R * n32 if in_smem else 0))
+
+
+def woodbury_general_scratch_floats(P: int, n_box: int, n_ns: int) -> int:
     """Device scratch of one scenario of the general route
-    (``general_scratch_floats``): X, W or K, and 2I − KX [3, P, P], and the
-    Gauss–Jordan matrix where shared memory does not hold it."""
-    return 3 * P * P + (0 if _general_gj_in_smem(n_box) else n_box * n_box)
+    (``general_scratch_floats``): G [n_box, n32], its rows padded to a
+    multiple of 32, then W [n_box, P] for n_ns = 0, or two [P, P] buffers
+    (W and 2I − K·X, and the X that is not in the output)."""
+    return n_box * -(-n_box // 32) * 32 + (2 * P * P if n_ns else n_box * P)
+
+
+def woodbury_general_plan(B: int, P: int, n_box: int, n_ns: int,
+                          tile: int | None = None,
+                          gj_cluster: int | None = None,
+                          gj_in_smem: bool | None = None) -> dict:
+    """The launches of the general route, 4 + 2·n_ns kernels a call: the
+    elimination G = M⁻¹ on a cluster, the products W, X and, per
+    Newton–Schulz step, 2I − K·X and X·(2I − K·X) as launches over
+    (scenario, output tile), and the symmetrisation over pairs of mirror
+    tiles. Returns ``woodbury_plan``'s keys (``cluster`` the elimination's,
+    ``blocks`` the widest grid, ``threads`` a product block's,
+    ``smem_bytes`` the most any block takes) with ``tile``, ``gj_in_smem``,
+    ``kernels`` and ``stages`` (name, blocks, threads, cluster, shared
+    memory of each launch).
+
+    The choices, each of which the arguments can force: the tile edge is 64
+    where B · (P / 64)² tiles fill the card's SMs, else 32 (four times the
+    blocks); M lives in the cluster's shared memory where a cluster of 8
+    holds it, else in the scratch (on a cluster of 8); a box wider than
+    WOODBURY_GJ_SPREAD is eliminated on the largest cluster whose B · C
+    blocks are at most two an SM (8 for a lone scenario, 4 at B = 64),
+    never on fewer blocks than hold M; a narrower one on the fewest that
+    hold it (tools/bench_woodbury_general_torch.py times every choice)."""
+    n = n_box
+    fits = [c for c in WOODBURY_GJ_CLUSTERS
+            if woodbury_general_gj_smem_bytes(n, c) <= MAX_SMEM]
+    if tile is None:
+        tile = 64 if B * (P // 64) ** 2 >= NUM_SMS else 32
+    if gj_in_smem is None:
+        gj_in_smem = bool(fits)
+    if gj_cluster is None:
+        if not gj_in_smem:
+            gj_cluster = MAX_CLUSTER
+        elif n > WOODBURY_GJ_SPREAD:
+            wide = [c for c in WOODBURY_GJ_CLUSTERS if B * c <= 2 * NUM_SMS]
+            gj_cluster = max(wide + fits[:1])
+        else:
+            gj_cluster = fits[0]
+    gj_smem = woodbury_general_gj_smem_bytes(n, gj_cluster, gj_in_smem)
+    if tile not in WOODBURY_GENERAL_TILES or P % tile:
+        raise ValueError(f"woodbury_ns: tile edge {tile} is not one of "
+                         f"{WOODBURY_GENERAL_TILES} dividing {P}")
+    if gj_cluster not in WOODBURY_GJ_CLUSTERS or gj_smem > MAX_SMEM:
+        raise ValueError(f"woodbury_ns: an elimination cluster of "
+                         f"{gj_cluster} cannot hold n_box {n} in shared "
+                         "memory")
+    prod = dict(threads=WOODBURY_GENERAL_THREADS, cluster=1,
+                smem_bytes=woodbury_general_product_smem_bytes(tile))
+    square = B * (P // tile) ** 2
+    sym = P // WOODBURY_SYM_TILE
+    stages = [dict(name="gauss_jordan", blocks=B * gj_cluster,
+                   threads=WOODBURY_GJ_THREADS, cluster=gj_cluster,
+                   smem_bytes=gj_smem),
+              dict(prod, name="W", blocks=B * -(-n // tile) * (P // tile)),
+              dict(prod, name="X", blocks=square)]
+    for _ in range(int(n_ns)):
+        stages += [dict(prod, name="2I-KX", blocks=square),
+                   dict(prod, name="X(2I-KX)", blocks=square)]
+    stages.append(dict(name="symmetrise", blocks=B * sym * (sym + 1) // 2,
+                       threads=WOODBURY_SYM_TILE * WOODBURY_SYM_ROWS,
+                       cluster=1,
+                       smem_bytes=4 * 2 * WOODBURY_SYM_TILE
+                       * (WOODBURY_SYM_TILE + 1)))
+    return dict(route="general", cluster=gj_cluster,
+                blocks=max(s["blocks"] for s in stages),
+                threads=WOODBURY_GENERAL_THREADS,
+                smem_bytes=max(s["smem_bytes"] for s in stages),
+                scratch_floats=B * woodbury_general_scratch_floats(P, n,
+                                                                   n_ns),
+                tile=tile, gj_in_smem=gj_in_smem, kernels=len(stages),
+                stages=stages)
 
 
 def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
@@ -485,9 +588,11 @@ def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
     size the tuned routes are built for (the card tests time both).
 
     Every other padded size that is a multiple of 128, and every wider box,
-    takes the ``general`` route: one block a scenario, its intermediates in
-    a device scratch. No padded size is refused for its size: device memory
-    caps it (the scratch is 12·P² bytes a scenario)."""
+    takes the ``general`` route (:func:`woodbury_general_plan`): the
+    products spread over the card, the elimination on a cluster, the
+    intermediates in a device scratch. No padded size is refused for its
+    size: device memory caps it (the scratch is 8·P² bytes a scenario with
+    Newton–Schulz steps, beside the 12·P² of K⁻¹, H and the result)."""
     if P % LANE or P <= 0:
         raise ValueError(f"woodbury_ns: padded size {P} must be a positive "
                          f"multiple of {LANE}")
@@ -495,12 +600,8 @@ def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
         if cluster is not None:
             raise ValueError(f"woodbury_ns: cluster size {cluster} forced at "
                              f"padded size {P}, n_box {n_box}: the general "
-                             "route runs one block a scenario")
-        return dict(route="general", cluster=1, blocks=B,
-                    threads=WOODBURY_THREADS,
-                    smem_bytes=woodbury_general_smem_bytes(n_box),
-                    scratch_floats=B * woodbury_general_scratch_floats(
-                        P, n_box))
+                             "route chooses its own")
+        return woodbury_general_plan(B, P, n_box, n_ns)
     sizes = WOODBURY_CLUSTERS[P]
     if cluster is None:
         split = n_ns > 0 or n_box > 32
@@ -515,6 +616,19 @@ def woodbury_plan(B: int, P: int, n_box: int, n_ns: int,
                          "memory than one block has")
     return dict(route="tuned", cluster=cluster, blocks=B * cluster,
                 threads=WOODBURY_THREADS, smem_bytes=smem, scratch_floats=0)
+
+
+def _general_launch(lib, ptrs, plan, B, P, box0, n_box, sigma, n_ns, device,
+                    stream) -> int:
+    """The general route's launches for ``ptrs`` (K⁻¹, H, d, ρ, out) as
+    ``plan`` says, with a scratch allocated on ``stream``, so that no launch
+    in flight shares it. Returns the launcher's CUDA error code."""
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=device)
+    return lib.woodbury_ns_general_launch(
+        *ptrs, scratch.data_ptr(), B, P, int(box0), int(n_box), float(sigma),
+        int(n_ns), plan["tile"], plan["cluster"], int(plan["gj_in_smem"]),
+        stream)
 
 
 def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
@@ -545,12 +659,8 @@ def woodbury_ns(Kinv_p, H_p, d_f, rho_f, *, box0: int, n_box: int,
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = [t.data_ptr() for t in (Kinv_p, H_p, d_f, rho_f, out)]
         if plan["route"] == "general":
-            # allocated on this stream, so no launch in flight shares it
-            scratch = torch.empty(plan["scratch_floats"],
-                                  dtype=torch.float32, device=Kinv_p.device)
-            rc = lib.woodbury_ns_general_launch(
-                *ptrs, scratch.data_ptr(), B, P, int(box0), int(n_box),
-                float(sigma), int(n_ns), stream)
+            rc = _general_launch(lib, ptrs, plan, B, P, box0, n_box, sigma,
+                                 n_ns, Kinv_p.device, stream)
         else:
             rc = lib.woodbury_ns_launch(
                 *ptrs, B, P, int(box0), int(n_box), float(sigma), int(n_ns),

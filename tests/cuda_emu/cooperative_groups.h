@@ -6,8 +6,8 @@ struct cluster_group {
   void sync() const { emu::blk->cluster->bar->arrive_and_wait(); }
   unsigned block_rank() const { return emu::blk->rank; }
   template <class T> T* map_shared_rank(T* p, unsigned rank) const {
-    char* base = reinterpret_cast<char*>(emu::blk->smem.data());
-    const size_t off = reinterpret_cast<char*>(p) - base;
+    const char* base = reinterpret_cast<const char*>(emu::blk->smem.data());
+    const size_t off = reinterpret_cast<const char*>(p) - base;
     char* peer = reinterpret_cast<char*>(
         emu::blk->cluster->blocks[rank].smem.data());
     return reinterpret_cast<T*>(peer + off);

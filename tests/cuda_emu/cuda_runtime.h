@@ -29,6 +29,8 @@ using std::min;
 
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct dim3 { unsigned x = 1, y = 1, z = 1; dim3() {} dim3(unsigned a) : x(a) {} };
 struct uint3_ { unsigned x = 0, y = 0, z = 0; };
 typedef void* cudaStream_t;
@@ -94,7 +96,9 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 
-// runs the grid one cluster at a time, every thread of the cluster at once
+// runs the grid one cluster at a time, every thread of the cluster at once;
+// the cluster's threads are made once per launch and run each cluster of
+// the grid in turn, its shared memory NaN-filled anew in between
 template <class... Exp, class... Act>
 inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
                                       void (*kernel)(Exp...), Act&&... args) {
@@ -105,37 +109,44 @@ inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
   const unsigned T = cfg->blockDim.x, G = cfg->gridDim.x;
   if (T > 1024 || C > 8 || cfg->dynamicSmemBytes > 232448 || G % C)
     return cudaErrorInvalidValue;
-  for (unsigned g0 = 0; g0 < G; g0 += C) {
-    emu::Cluster cl;
-    cl.blocks.resize(C);
-    cl.bar = std::make_unique<std::barrier<>>(C * T);
-    for (unsigned r = 0; r < C; ++r) {
-      auto& b = cl.blocks[r];
-      // NaN-filled: a read of shared memory that was never written shows
-      b.smem.assign(cfg->dynamicSmemBytes / 16 + 1, float4{NAN, NAN, NAN, NAN});
-      b.bar = std::make_unique<std::barrier<>>(T);
-      for (unsigned w = 0; w < (T + 31) / 32; ++w) {
-        b.warp_bar.push_back(
-            std::make_unique<std::barrier<>>(std::min(32u, T - 32 * w)));
-        b.warp_buf.emplace_back(32);
-      }
-      b.cluster = &cl;
-      b.rank = r;
+  emu::Cluster cl;
+  cl.blocks.resize(C);
+  cl.bar = std::make_unique<std::barrier<>>(C * T);
+  // NaN-filled: a read of shared memory that was never written shows
+  auto fill = [&cl, cfg]() noexcept {
+    for (auto& b : cl.blocks)
+      b.smem.assign(cfg->dynamicSmemBytes / 16 + 1,
+                    float4{NAN, NAN, NAN, NAN});
+  };
+  fill();
+  for (unsigned r = 0; r < C; ++r) {
+    auto& b = cl.blocks[r];
+    b.bar = std::make_unique<std::barrier<>>(T);
+    for (unsigned w = 0; w < (T + 31) / 32; ++w) {
+      b.warp_bar.push_back(
+          std::make_unique<std::barrier<>>(std::min(32u, T - 32 * w)));
+      b.warp_buf.emplace_back(32);
     }
-    std::vector<std::thread> threads;
-    for (unsigned r = 0; r < C; ++r)
-      for (unsigned t = 0; t < T; ++t)
-        threads.emplace_back([&, r, t]() {
-          emu::blk = &cl.blocks[r];
-          emu::lane_id = t & 31;
-          emu::warp_id = t >> 5;
-          threadIdx.x = t;
-          blockIdx.x = g0 + r;
-          blockDim = cfg->blockDim;
-          gridDim = cfg->gridDim;
-          kernel(static_cast<Exp>(args)...);
-        });
-    for (auto& t : threads) t.join();
+    b.cluster = &cl;
+    b.rank = r;
   }
+  std::barrier<decltype(fill)> next(C * T, fill);
+  std::vector<std::thread> threads;
+  for (unsigned r = 0; r < C; ++r)
+    for (unsigned t = 0; t < T; ++t)
+      threads.emplace_back([&, r, t]() {
+        emu::blk = &cl.blocks[r];
+        emu::lane_id = t & 31;
+        emu::warp_id = t >> 5;
+        threadIdx.x = t;
+        blockDim = cfg->blockDim;
+        gridDim = cfg->gridDim;
+        for (unsigned g0 = 0; g0 < G; g0 += C) {
+          blockIdx.x = g0 + r;
+          kernel(static_cast<Exp>(args)...);
+          next.arrive_and_wait();
+        }
+      });
+  for (auto& t : threads) t.join();
   return cudaSuccess;
 }

@@ -297,43 +297,103 @@ def test_woodbury_plan_refuses_what_the_kernel_does_not_take():
     assert worst <= kernels.MAX_SMEM
 
 
+@pytest.mark.parametrize("n_ns", [0, 1])
 @pytest.mark.parametrize("batch", [1, 16, 64])
 @pytest.mark.parametrize("p,n_box", [(256, 129), (256, 132), (256, 231), (256, 232),
                                      (384, 80), (640, 8), (640, 528),
                                      (1024, 1024), (1152, 8), (1152, 132)])
-def test_woodbury_plan_general_route(p, n_box, batch):
-    """One block a scenario with a device scratch, every shape the tuned
-    routes do not take, P = 1152 too: the shared memory fits a block, the
-    Gauss–Jordan matrix moves to the scratch above n_box 231."""
-    plan = kernels.woodbury_plan(batch, p, n_box, 1)
-    assert plan["route"] == "general" and plan["cluster"] == 1
-    assert plan["blocks"] == batch
-    assert plan["threads"] == kernels.WOODBURY_THREADS
-    assert 0 < plan["smem_bytes"] <= kernels.MAX_SMEM
-    in_smem = n_box <= 231
+def test_woodbury_plan_general_route(p, n_box, batch, n_ns):
+    """Every shape the tuned routes do not take, P = 1152 too: 4 + 2·n_ns
+    launches, the products over (scenario, tile) with 64-wide tiles where
+    they fill the card and 32-wide ones (four times the blocks) where they
+    do not, the elimination of a box wider than 32 on the largest cluster at
+    two blocks an SM (8 at B = 1 and 16, 4 at B = 64), of a narrower one on
+    one block, M in the scratch only where no cluster holds it; every
+    block's shared
+    memory fits, and the scratch is G (rows padded to 32) plus W or two
+    [P, P] buffers."""
+    plan = kernels.woodbury_plan(batch, p, n_box, n_ns)
+    assert plan["route"] == "general"
+    stages = plan["stages"]
+    assert plan["kernels"] == len(stages) == 4 + 2 * n_ns
+    assert [s["name"] for s in stages] == (
+        ["gauss_jordan", "W", "X"] + ["2I-KX", "X(2I-KX)"] * n_ns
+        + ["symmetrise"])
+    tile = plan["tile"]
+    assert tile == (64 if batch * (p // 64) ** 2 >= kernels.NUM_SMS else 32)
+    square = batch * (p // tile) ** 2
+    assert [s["blocks"] for s in stages[1:-1]] == \
+        [batch * -(-n_box // tile) * (p // tile)] + [square] * (1 + 2 * n_ns)
+    sym = p // 32
+    assert stages[-1]["blocks"] == batch * sym * (sym + 1) // 2
+    assert plan["blocks"] == max(s["blocks"] for s in stages) > 1
+    for s in stages[1:-1]:
+        assert s["threads"] == plan["threads"] == \
+            kernels.WOODBURY_GENERAL_THREADS
+        assert s["smem_bytes"] == 4 * 2 * (tile * 36 + 32 * tile)
+    # the elimination: a cluster whose shared memory holds M where one does
+    c = plan["cluster"]
+    gj = stages[0]
+    assert gj["cluster"] == c and gj["blocks"] == batch * c
+    assert gj["threads"] == kernels.WOODBURY_GJ_THREADS
+    n32 = -(-n_box // 32) * 32
+    fits = [k for k in (1, 2, 4, 8)
+            if 4 * (2 * n32 + 2 * (-(-(-(-n_box // k)) // 4) * 4)
+                    + -(-n_box // k) * n32) <= kernels.MAX_SMEM]
+    assert plan["gj_in_smem"] == bool(fits) == (n_box <= 672)
+    if not fits:
+        assert c == 8
+    elif n_box > 32:
+        # the largest cluster at two blocks an SM, never fewer than hold M
+        wide = max(k for k in (1, 2, 4, 8)
+                   if batch * k <= 2 * kernels.NUM_SMS)
+        assert wide == {1: 8, 16: 8, 64: 4}[batch]
+        assert c == max(fits[0], wide)
+    else:
+        assert c == fits[0] == 1
+    assert 0 < plan["smem_bytes"] == max(s["smem_bytes"] for s in stages) \
+        <= kernels.MAX_SMEM
     assert plan["scratch_floats"] == batch * (
-        3 * p * p + (0 if in_smem else n_box * n_box))
-    assert (plan["smem_bytes"] >= 4 * n_box * n_box) == in_smem
+        n_box * n32 + (2 * p * p if n_ns else n_box * p))
 
 
 def test_woodbury_general_layout_matches_the_cuda_source():
-    """The general route's shared memory and scratch, from the constants
-    parsed out of csrc/woodbury_ns.cu: product tiles A [32, 65] and
-    B [32, 64], the pivot row and column, the Gauss–Jordan matrix while it
-    fits."""
+    """The general route's launches, shared memory and scratch, from the
+    constants parsed out of csrc/woodbury_ns.cu: product blocks of 8 × 16
+    threads over 32- or 64-wide tiles staged 32 deep (A rows padded by 4),
+    two stages; elimination blocks of 256 on clusters of 1 to 8; 32 × 32
+    symmetrisation tiles; the launcher refuses no padded size for its size
+    (it refused P > 1024), only what the plan never asks for."""
     text, c = _cuda_constants("woodbury_ns.cu")
-    # the launcher refuses no padded size for its size (it refused P > 1024)
-    assert "if (P < 1 || box0 < 0 || n_box < 1 || box0 + n_box > P" in text
-    assert c["kGenLdA"] == c["kGenTile"] + 1
-    assert c["kGenTileFloats"] == kernels.WOODBURY_GENERAL_TILE_FLOATS == \
-        c["kGenDepth"] * c["kGenLdA"] + c["kGenDepth"] * c["kGenTile"]
-    assert "return 3L * P * P + (general_gj_in_smem(n) ? 0" in text
+    assert c["kGenThreads"] == kernels.WOODBURY_GENERAL_THREADS == 8 * 16
+    assert (c["kGenDepth"], c["kGenPad"]) == (
+        kernels.WOODBURY_GENERAL_DEPTH, kernels.WOODBURY_GENERAL_PAD)
+    assert c["kGjThreads"] == kernels.WOODBURY_GJ_THREADS
+    assert (c["kSymTile"], c["kSymRows"]) == (
+        kernels.WOODBURY_SYM_TILE, kernels.WOODBURY_SYM_ROWS)
+    assert "(tile != 32 && tile != 64) || P % tile ||" in text
+    assert "(C != 1 && C != 2 && C != 4 && C != 8) ||" in text
+    assert kernels.WOODBURY_GENERAL_TILES == (32, 64)
+    assert kernels.WOODBURY_GJ_CLUSTERS == (1, 2, 4, 8)
+    assert "if (P < 1 || P % kSymTile || box0 < 0 || n_box < 1 ||" in text
+    assert "return T * (kGenDepth + kGenPad) + kGenDepth * T;" in text
+    assert "return 2L * round32(n) + 2L * round4(R) +" in text
+    assert "return static_cast<long>(n) * round32(n);" in text
+    assert "(n_ns > 0 ? 2L * P * P : static_cast<long>(n) * P);" in text
+    for tile in kernels.WOODBURY_GENERAL_TILES:
+        assert kernels.woodbury_general_product_smem_bytes(tile) == 4 * 2 * (
+            tile * (c["kGenDepth"] + c["kGenPad"]) + c["kGenDepth"] * tile)
     for n in range(1, 1025):
-        vec = 2 * ((n + 3) // 4 * 4)
-        fits = 4 * (c["kGenTileFloats"] + vec + n * n) <= c["kMaxSmem"]
-        assert fits == (n <= 231)
-        assert kernels.woodbury_general_smem_bytes(n) == 4 * (
-            c["kGenTileFloats"] + vec + (n * n if fits else 0))
+        n32 = -(-n // 32) * 32
+        for k in kernels.WOODBURY_GJ_CLUSTERS:
+            R = -(-n // k)
+            for in_smem in (True, False):
+                assert kernels.woodbury_general_gj_smem_bytes(
+                    n, k, in_smem) == 4 * (2 * n32 + 2 * (-(-R // 4) * 4)
+                                           + (R * n32 if in_smem else 0))
+    # a cluster of 8 holds M up to n_box 672; beyond, the scratch does
+    assert kernels.woodbury_general_gj_smem_bytes(672, 8) <= c["kMaxSmem"]
+    assert kernels.woodbury_general_gj_smem_bytes(673, 8) > c["kMaxSmem"]
 
 
 @pytest.mark.parametrize("p", [128, 256, 384, 1152])

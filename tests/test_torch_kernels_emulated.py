@@ -9,12 +9,14 @@ barrier a ``std::barrier``, a shuffle an exchange through a per-warp array,
 a peer block's shared memory a pointer), loaded through the same C interface
 as the real library and compared with the plain PyTorch twins: both variants
 of the segment, every route of the grouped segment, every padded size and
-cluster size of the refresh's tuned routes and its general route (P = 256
-with a box of 132, P = 384, P = 640, the elimination in shared and in device
-memory), every Gauss–Jordan elimination, ragged boxes and the pivot clamp,
-and P = 1152, above the 1024 threads of a block (the segments' streamed
-route with two coordinates a thread, the general route with n_ns = 0; its
-Newton–Schulz products at that size are left to the card).
+cluster size of the refresh's tuned routes and its general route (its
+launches over output tiles and its elimination on a cluster of 1, 2 or 8
+blocks, at P = 256 with a box of 132, P = 384, P = 640, M in shared and in
+device memory, ragged tile edges), every Gauss–Jordan elimination, ragged
+boxes and the pivot clamp, and P = 1152, above the 1024 threads of a block
+(the segments' streamed route with two coordinates a thread, the general
+route with n_ns = 0; its Newton–Schulz products at that size are left to
+the card).
 What the stand-in cannot see (timing, bank conflicts, a race between two
 barriers) stays with the card. Skips where there is no ``g++`` with C++20's
 ``<barrier>``.
@@ -82,12 +84,7 @@ def emulated(tmp_path_factory):
     libs["woodbury_ns"].woodbury_ns_launch.argtypes = (
         [p] * 5 + [i, i, i, i, f, i, i, p])
     libs["woodbury_ns"].woodbury_ns_smem_bytes.argtypes = [i, i, i, i]
-    libs["woodbury_ns"].woodbury_ns_general_launch.argtypes = (
-        [p] * 6 + [i, i, i, i, f, i, p])
-    libs["woodbury_ns"].woodbury_ns_general_smem_bytes.argtypes = [i]
-    libs["woodbury_ns"].woodbury_ns_general_scratch_floats.argtypes = [i, i]
-    libs["woodbury_ns"].woodbury_ns_general_scratch_floats.restype = \
-        ctypes.c_long
+    kernels._bind_general(libs["woodbury_ns"])
     libs["admm_segment_grouped"].admm_segment_grouped_launch.argtypes = (
         [p] * 13 + [i, i, i, f, f, f, i, p])
     return libs
@@ -136,16 +133,18 @@ def _grouped(lib, ins, length, group):
     return rc, outs
 
 
-def _general(lib, ins, box0, n_box, n_ns):
+def _general(lib, ins, box0, n_box, n_ns, **force):
+    """The general route's launches as woodbury_plan chooses them (or with
+    its tile edge, elimination cluster or the matrix's place forced)."""
     out = torch.full_like(ins[0], float("nan"))
     B, p = ins[0].shape[0], ins[0].shape[-1]
+    plan = kernels.woodbury_general_plan(B, p, n_box, n_ns, **force)
     # NaN-filled: a read of scratch that was never written shows
-    scratch = torch.full(
-        (B * lib.woodbury_ns_general_scratch_floats(p, n_box),),
-        float("nan"))
+    scratch = torch.full((plan["scratch_floats"],), float("nan"))
     rc = lib.woodbury_ns_general_launch(
         *(t.data_ptr() for t in ins + [out, scratch]), B, p, box0, n_box,
-        SIGMA, n_ns, None)
+        SIGMA, n_ns, plan["tile"], plan["cluster"], int(plan["gj_in_smem"]),
+        None)
     assert rc == 0
     return out
 
@@ -291,32 +290,47 @@ def test_woodbury_source_refuses_what_it_is_not_built_for(emulated):
         got = _general(lib, ins, **kw)
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                    atol=2e-6)
-    for p, box0, n_box in ((P, 120, 24), (P, 0, 0), (P_BIG, 1140, 24)):
+    # an invalid box, a tile edge or elimination cluster the launcher is not
+    # built for, M in shared memory where no cluster's holds it
+    for p, box0, n_box, tile, c, in_smem in (
+            (P, 120, 24, 32, 1, 1), (P, 0, 0, 32, 1, 1),
+            (P_BIG, 1140, 24, 64, 1, 1), (384, 0, 24, 16, 1, 1),
+            (384, 0, 24, 128, 1, 1), (P_BIG, 0, 24, 64, 3, 1),
+            (P_BIG, 0, 24, 64, 16, 1), (P_BIG, 0, 700, 64, 8, 1)):
         m, v = torch.zeros(1, p, p), torch.zeros(1, p)
         rc = lib.woodbury_ns_general_launch(
             *(t.data_ptr() for t in (m, m, v, v, torch.empty_like(m), m)), 1,
-            p, box0, n_box, SIGMA, 1, None)
-        assert rc != 0, (p, box0, n_box)
+            p, box0, n_box, SIGMA, 1, tile, c, in_smem, None)
+        assert rc != 0, (p, box0, n_box, tile, c, in_smem)
 
 
-@pytest.mark.parametrize("p,nu,box0,n_ns,batch",
-                         [(384, 288, 208, 1, 2), (640, 528, 520, 0, 2),
-                          (384, 384, 84, 0, 2), (P2, 132, 0, 2, 2),
-                          (P_BIG, *BIG_BOXES[0], 0, 1),
-                          (P_BIG, *BIG_BOXES[1], 0, 1)],
+@pytest.mark.parametrize("p,nu,box0,n_ns,batch,force",
+                         [(384, 288, 208, 1, 2, {}), (640, 528, 520, 0, 2, {}),
+                          (384, 384, 84, 0, 2, dict(gj_in_smem=False)),
+                          (P2, 132, 0, 2, 2, {}),
+                          (P_BIG, *BIG_BOXES[0], 0, 1, {}),
+                          (P_BIG, *BIG_BOXES[1], 0, 1, {}),
+                          (384, 256, 123, 1, 1, {}),
+                          (384, 256, 123, 0, 1, dict(tile=64, gj_cluster=2))],
                          ids=["p384-box80", "p640-box8", "gj-in-scratch",
-                              "p256-box132", "p1152-box8", "p1152-box132"])
+                              "p256-box132", "p1152-box8", "p1152-box132",
+                              "ragged-tiles", "ragged-cluster2"])
 def test_woodbury_ns_general_source_matches_twin(emulated, p, nu, box0,
-                                                 n_ns, batch):
-    """The general route: P = 384 and P = 640, the elimination in the device
-    scratch (n_box 300 > 231), and the long horizon's box of 132 at
-    P = 256 with two Newton–Schulz steps, at B = 2; P = 1152 (refused
-    before) with a box of 8 and of 132 at B = 1."""
+                                                 n_ns, batch, force):
+    """The general route as the plan launches it: P = 384 and P = 640 at
+    B = 2, the long horizon's box of 132 at P = 256 with two Newton–Schulz
+    steps on a cluster of 8 at B = 2, P = 1152 (refused before) with a box
+    of 8 (one block) and of 132 (a cluster of 8) at B = 1; the elimination
+    in the device scratch (n_box 300, forced: the plan keeps M in a
+    cluster's shared memory up to 672); ragged edges — n_box 133 against
+    32- and 64-wide tiles and a cluster of 8 or 2 (17 or 67 rows a block),
+    box0 = 123 off a 16-byte boundary, so that A's rows are copied 4 bytes
+    at a time."""
     _, _, ins = _woodbury_inputs(14, batch, nu, box0, p=p)
     ins = [torch.as_tensor(v).contiguous() for v in ins.values()]
     kw = dict(box0=box0, n_box=nu - box0, n_ns=n_ns)
     ref = kernels.woodbury_ns_plain(*ins, sigma=SIGMA, **kw)
-    got = _general(emulated["woodbury_ns"], ins, **kw)
+    got = _general(emulated["woodbury_ns"], ins, **kw, **force)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=2e-6)
     np.testing.assert_array_equal(got.numpy(), got.mT.numpy())
 
@@ -383,12 +397,20 @@ def test_admm_segment_grouped_source_keeps_nan_and_refuses_bad_shapes(
 
 def test_woodbury_layout_of_the_source_matches_the_plan(emulated):
     lib = emulated["woodbury_ns"]
+    for tile in kernels.WOODBURY_GENERAL_TILES:
+        assert lib.woodbury_ns_general_product_smem_bytes(tile) == \
+            kernels.woodbury_general_product_smem_bytes(tile)
     for n_box in range(1, P_BIG + 1):
-        assert lib.woodbury_ns_general_smem_bytes(n_box) == \
-            kernels.woodbury_general_smem_bytes(n_box)
+        for c in kernels.WOODBURY_GJ_CLUSTERS:
+            for in_smem in (0, 1):
+                assert lib.woodbury_ns_general_gj_smem_bytes(
+                    n_box, c, in_smem) == \
+                    kernels.woodbury_general_gj_smem_bytes(n_box, c, in_smem)
         for p in (n_box, P_BIG):
-            assert lib.woodbury_ns_general_scratch_floats(p, n_box) == \
-                kernels.woodbury_general_scratch_floats(p, n_box)
+            for n_ns in (0, 1):
+                assert lib.woodbury_ns_general_scratch_floats(
+                    p, n_box, n_ns) == \
+                    kernels.woodbury_general_scratch_floats(p, n_box, n_ns)
     fn = lib.woodbury_ns_smem_bytes
     for p, clusters in kernels.WOODBURY_CLUSTERS.items():
         for n_box in range(1, kernels.WOODBURY_MAX_BOX + 1):

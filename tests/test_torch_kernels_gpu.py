@@ -437,8 +437,8 @@ GENERAL_SHAPES = [(P2, 132, 0, 1, 0), (P2, 132, 0, 64, 1), (384, 288, 208, 1, 1)
 def test_woodbury_ns_general_cuda_matches_twin(cuda, p, nu, box0, batch,
                                                n_ns):
     """The general route: a box wider than 128 at P = 256 (a control horizon
-    of 13 with joint limits), P = 384 and P = 640, the Gauss–Jordan matrix
-    in shared memory (n_box ≤ 231) and in the device scratch (528)."""
+    of 13 with joint limits), P = 384 and P = 640, the elimination on one
+    block (n_box 8) and on a cluster of 8 (528)."""
     _, _, ins = _woodbury_inputs(12, batch, nu, box0, p=p)
     ins = {k: torch.as_tensor(v) for k, v in ins.items()}
     kw = dict(box0=box0, n_box=nu - box0, sigma=SIGMA, n_ns=n_ns)
@@ -452,6 +452,62 @@ def test_woodbury_ns_general_cuda_matches_twin(cuda, p, nu, box0, batch,
     np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
                                atol=1e-5)
     assert torch.equal(got, got.mT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ns", [0, 1])
+def test_woodbury_ns_general_cuda_spreads_a_lone_scenario(cuda, n_ns):
+    """A lone scenario of the long horizon (P = 256, n_box 132) is spread
+    over the card: every product and the symmetrisation launch more blocks
+    than one, the elimination a cluster of them; the result is the twin's
+    within 1e-5 and exactly symmetric, one wrapper launch."""
+    plan = kernels.woodbury_plan(1, P2, 132, n_ns)
+    assert plan["route"] == "general" and plan["kernels"] == 4 + 2 * n_ns
+    assert plan["blocks"] > 1 and plan["cluster"] > 1
+    assert all(s["blocks"] > 1 for s in plan["stages"])
+    _, _, ins = _woodbury_inputs(21, 1, 132, 0, p=P2)
+    ins = {k: torch.as_tensor(v) for k, v in ins.items()}
+    kw = dict(box0=0, n_box=132, sigma=SIGMA, n_ns=n_ns)
+    ref = kernels.woodbury_ns_plain(*ins.values(), **kw)
+    before = kernels.woodbury_ns.launches
+    got = kernels.woodbury_ns(*(v.to(cuda) for v in ins.values()), **kw)
+    torch.cuda.synchronize()
+    assert kernels.woodbury_ns.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5)
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ns", [0, 1])
+def test_woodbury_ns_general_cuda_every_choice_matches_twin(cuda, n_ns):
+    """Every tile edge, elimination cluster and place of M the general
+    route's launcher takes, forced at ragged sizes (n_box 133 against 32-
+    and 64-wide tiles, box0 = 123 off a 16-byte boundary, B = 2): each
+    within 1e-5 of the twin and exactly symmetric."""
+    p, nu, box0, batch = 384, 256, 123, 2
+    _, _, ins = _woodbury_inputs(22, batch, nu, box0, p=p)
+    ins = [torch.as_tensor(v) for v in ins.values()]
+    kw = dict(box0=box0, n_box=nu - box0, sigma=SIGMA, n_ns=n_ns)
+    ref = kernels.woodbury_ns_plain(*ins, **kw).numpy()
+    ins = [v.to(cuda) for v in ins]
+    lib = kernels._lib("woodbury_ns")
+    for tile in kernels.WOODBURY_GENERAL_TILES:
+        for c in kernels.WOODBURY_GJ_CLUSTERS:
+            for in_smem in (True, False):
+                plan = kernels.woodbury_general_plan(
+                    batch, p, nu - box0, n_ns, tile=tile, gj_cluster=c,
+                    gj_in_smem=in_smem)
+                out = torch.empty_like(ins[0])
+                rc = kernels._general_launch(
+                    lib, [t.data_ptr() for t in ins + [out]], plan, batch, p,
+                    box0, nu - box0, SIGMA, n_ns, cuda,
+                    torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                assert rc == 0, (tile, c, in_smem)
+                np.testing.assert_allclose(out.cpu().numpy(), ref, rtol=0,
+                                           atol=1e-5)
+                assert torch.equal(out, out.mT), (tile, c, in_smem)
 
 
 @pytest.mark.gpu
@@ -499,11 +555,19 @@ def test_woodbury_smem_bytes_matches_the_built_kernel(cuda):
                     assert fn(p, n_box, n_ns, c) == \
                         kernels.woodbury_smem_bytes(n_box, n_ns, c, p), \
                         (p, n_box, n_ns, c)
+    for tile in kernels.WOODBURY_GENERAL_TILES:
+        assert lib.woodbury_ns_general_product_smem_bytes(tile) == \
+            kernels.woodbury_general_product_smem_bytes(tile)
     for n_box in (1, 8, 80, 132, 231, 232, 528, 1024):
-        assert lib.woodbury_ns_general_smem_bytes(n_box) == \
-            kernels.woodbury_general_smem_bytes(n_box)
-        assert lib.woodbury_ns_general_scratch_floats(1024, n_box) == \
-            kernels.woodbury_general_scratch_floats(1024, n_box)
+        for c in kernels.WOODBURY_GJ_CLUSTERS:
+            for in_smem in (0, 1):
+                assert lib.woodbury_ns_general_gj_smem_bytes(
+                    n_box, c, in_smem) == \
+                    kernels.woodbury_general_gj_smem_bytes(n_box, c, in_smem)
+        for n_ns in (0, 1):
+            assert lib.woodbury_ns_general_scratch_floats(
+                1024, n_box, n_ns) == \
+                kernels.woodbury_general_scratch_floats(1024, n_box, n_ns)
 
 
 def _solve_twice(dev, batch=3, nu=NU2, box0=BOX02):

@@ -123,7 +123,8 @@ def test_port_never_imports_jax():
         "'profile_chained_stages_torch', 'profile_condense_torch', "
         "'profile_solve_parts_torch', 'bench_ns_skip_torch', "
         "'bench_joint_limits_latency_torch', 'debug_qp_torch', "
-        "'record_flight_snapshots_torch', 'make_calibrated_urdf_torch'):\n"
+        "'record_flight_snapshots_torch', 'make_calibrated_urdf_torch', "
+        "'bench_woodbury_general_torch'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='not_main')\n"
         "sys.path.insert(0, 'tests')\n"
         "runpy.run_path('tests/oracle_replay.py', run_name='not_main')\n"

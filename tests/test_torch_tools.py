@@ -30,6 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 
 import bench_joint_limits_latency_torch  # noqa: E402
+import bench_woodbury_general_torch  # noqa: E402
 import bench_ns_skip_torch  # noqa: E402
 import debug_qp_torch  # noqa: E402
 import fly_full_trajectory_torch  # noqa: E402
@@ -119,6 +120,24 @@ def test_solve_parts_holds_each_kernel_row_to_its_twin():
         assert r["P"] == 128 and r["batch"] == 2
 
 
+def test_bench_woodbury_general_dry_run_prints_the_plans(tmp_path, capsys):
+    """On the CPU the general route's bench times the twin and records the
+    plan it would launch on the card: 6 launches at n_ns 1, a cluster of 8
+    for the long horizon's box of 132, 32-wide tiles at P = 256."""
+    out = tmp_path / "bench.json"
+    assert bench_woodbury_general_torch.main(["--out", str(out)] + CPU) == 0
+    record = json.loads(out.read_text())
+    assert record["device"] == "cpu"
+    (rec,) = record["records"]
+    assert (rec["P"], rec["n_box"], rec["batch"], rec["n_ns"]) == \
+        (256, 132, 2, 1)
+    assert rec["plan"] == dict(tile=32, cluster=8, gj_in_smem=True,
+                               kernels=6, blocks=128)
+    assert rec["plain_ms"] > 0 and "choices" not in rec
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == \
+        dict(device="cpu", ok=True)
+
+
 def test_make_calibrated_urdf_is_byte_identical(tmp_path):
     out = tmp_path / "mk3.urdf"
     make_calibrated_urdf_torch.main(["--out", str(out)])
@@ -186,6 +205,8 @@ WRITERS = {
                              lambda p: ["--out", p]),
     "record_flight_snapshots": (record_flight_snapshots_torch,
                                 lambda p: ["1", "2", p] + CPU),
+    "bench_woodbury_general": (bench_woodbury_general_torch,
+                               lambda p: ["--out", p] + CPU),
 }
 COMMITTED = ["FLIGHT_r05.json", "SWEEP_r05.json", "MISMATCH_r05.json",
              "tests/golden/flight_snapshots.npz",
