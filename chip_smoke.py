@@ -16,10 +16,14 @@ Phases (any failure exits non-zero):
 2. kernels   run each kernel against its plain PyTorch twin on the same
              CUDA tensors at the shapes its path gives it; time kernel,
              twin, the card's bound and, where one exists, a single PyTorch
-             call that computes the same function. Every variant a wrapper
-             can choose (admm_segment: K⁻¹ in registers at P = 128, streamed
-             through L2 at P = 256; woodbury_ns: one block or a cluster of 8
-             at P = 128, a cluster of 8 at P = 256) is held against the twin
+             call that computes the same function. Every route a wrapper
+             can choose (admm_segment: K⁻¹ in registers at P = 128, in the
+             strips of a cluster at P = 256, spread over the card, a launch
+             an iteration, at P = 1152 and 4224 — each segment row prints
+             its route, cluster and kernels a call, and a NaN in one lane
+             stays there on both new routes; woodbury_ns: one block or a
+             cluster of 8 at P = 128, a cluster of 8 at P = 256) is held
+             against the twin
              and timed as well, at batch 1, 64 and 256 (and the stock
              chunk and refresh at the sweep's batch, 1024), and woodbury_ns's
              general route (4 + 2·n_ns launches a call: the products over
@@ -28,14 +32,15 @@ Phases (any failure exits non-zero):
              device kernels) at the shapes the tuned routes do not take:
              P = 256 with n_box 132 (a control horizon of 13 with joint
              limits), P = 384, P = 640 and P = 1152 (above a block's 1024
-             threads; there the segments stream K⁻¹ with two coordinates a
-             thread), each with torch.linalg.inv_ex beside it and held
-             exactly symmetric; admm_segment's wide variant (state and rhs
-             in device memory) at P = 4224.
+             threads), each with torch.linalg.inv_ex beside it and held
+             exactly symmetric; admm_segment's spread route also at
+             P = 4224.
              The previous design's times stand beside the new ones, and the
              script fails where a kernel is more than 10 % slower than its
-             previous design at a main-path shape or any general-route
-             shape, or where woodbury_ns at n_box 120 (batch 256) or the
+             previous design at a main-path shape, a P = 256, 1152 or 4224
+             segment shape or any general-route shape, where a segment
+             row at P >= 1152 is slower than its plain twin, or where
+             woodbury_ns at n_box 120 (batch 256) or the
              general route at P = 256, n_box 132 (batch 1, n_ns 0 and 1)
              loses to torch.linalg.inv_ex. The grouped segment
              (group 1 to 16, one wave and four, P = 256) is also held
@@ -55,8 +60,8 @@ Phases (any failure exits non-zero):
              with the box over all 132 inputs, so the refresh takes
              woodbury_ns's general route; 10 ticks at batch 1 and 10 at
              batch 64, every lane solved, the first 5 against the port's
-             CPU run, then 5 profiled: the refresh's device ms and device
-             kernels a tick.
+             CPU run, then 5 profiled: the refresh's and the segment's
+             device ms and device kernels a tick.
 5b. full_space  the recorded stream under MPCConfig(qp_solver="full")
              (588 variables, 512 rows, the default solver settings: 250
              iterations, ρ marks 25 / 75 / 150, polish): 20 ticks at batch
@@ -188,8 +193,8 @@ LH_TICKS, LH_CHECK, LH_BATCH, LH_PROFILED = 10, 5, 64, 5
 # P = 1152 (nU = 1140), above the 1024 threads of a block: a box of 8 and
 # of 132 (box0 = nU − n_box)
 BIG_P, BIG_NU, BIG_BOX0S = 1152, 1140, (1132, 1008)
-# the segments' wide variant (five coordinates a thread, state and rhs in
-# device memory): P = 4224, nU = 4200, a box of 132
+# the segments' spread route over the whole card (132 strips of 32 columns
+# at batch 1): P = 4224, nU = 4200, a box of 132
 WIDE_P, WIDE_NU, WIDE_BOX0 = 4224, 4200, 4068
 # the head-to-head shape of the grouped segment, and the tick's chunk shape
 SEG_BATCH, SEG_ITERS, GROUP = 512, 40, 8
@@ -245,9 +250,13 @@ RESUME_LANES, RESUME_TICKS = 16, 8
 # route before its products were spread over the card and its elimination
 # over a cluster (one block a scenario, 64 × 64 output tiles of 4 × 4 a
 # thread, the elimination on one SM: PERF.md §6's rows of runs R, V and AJ),
-# from this script's phase 2 on PREVIOUS_CARD, keyed by batch; the new
-# designs are held to them at the main path's shapes, the grouped kernel's
-# two timed shapes and every shape of the general route.
+# and of both segments' streamed and wide variants at P >= 256 (one block of
+# at most 1024 threads a scenario re-reading K⁻¹ through L2 every
+# iteration: PERF.md §6's run AK), from this script's phase 2 on PREVIOUS_CARD,
+# keyed by batch; the new designs are held to them at the main path's
+# shapes, the grouped kernel's timed shapes, every segment shape at P >= 256
+# and every shape of the general route. Segments at P != 128 are keyed by
+# (name, P, n_box).
 PREVIOUS_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREVIOUS_MS = {
     ("admm_segment", 5): {1: 0.0129, 64: 0.0132, 256: 0.0142},
@@ -264,6 +273,13 @@ PREVIOUS_MS = {
     ("woodbury_ns", BIG_P, 132, 0): {1: 8.7212},
     ("woodbury_ns", BIG_P, 132, 1): {1: 87.6901},
     ("admm_segment_grouped", 8): {512: 0.2628, 256: 0.0389},
+    ("admm_segment", P2, NU2 - BOX02): {1: 0.0357, 64: 0.0375, 256: 0.1298},
+    ("admm_segment", BIG_P, 8): {1: 0.3078},
+    ("admm_segment", BIG_P, 132): {1: 0.3081},
+    ("admm_segment", WIDE_P, 132): {1: 9.5192},
+    ("admm_segment_grouped", P2, NU2 - BOX02): {64: 0.0376},
+    ("admm_segment_grouped", BIG_P, 8): {1: 0.3091},
+    ("admm_segment_grouped", BIG_P, 132): {1: 0.3094},
 }
 SLOWER_THAN_PREVIOUS = 1.10
 # the long horizon's refresh at batch 1 must not lose to torch.linalg.inv_ex
@@ -421,12 +437,48 @@ def _previous(row):
     if row["name"] == "woodbury_ns":
         key = ("woodbury_ns", row["P"], row["n_box"], row["n_ns"])
     elif row["P"] != P:
-        return None
+        key = (row["name"], row["P"], row["n_box"])
     elif row["name"] == "admm_segment":
         key = ("admm_segment", row["length"])
     else:
         key = ("admm_segment_grouped", row["group"])
     return PREVIOUS_MS.get(key, {}).get(row["batch"])
+
+
+def segment_route(plan):
+    """A segment row's route, cluster, place of K⁻¹ and kernels a call."""
+    return dict(route=plan["route"], cluster=plan["cluster"],
+                kinv="registers" if plan["kinv_in_registers"] else
+                "shared" if plan["route"] == "cluster" else
+                f"streamed in strips of {plan['spread_cols']}",
+                kernels=plan["kernels"])
+
+
+def segment_nan_lane(K, dev):
+    """A NaN in one lane's x stays in that lane on the cluster route
+    (P = 256, batch 64) and the spread route (P = 1152, batch 2) of both
+    segment wrappers; the other lanes match the twin within 1e-4."""
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=5)
+    for batch, nu, box0, p in ((FLIGHT_BATCH, NU2, BOX02, P2),
+                               (2, BIG_NU, BIG_BOX0S[1], BIG_P)):
+        ins = list(segment_inputs(batch, 60 + batch, dev, nu, box0,
+                                  p).values())
+        ins[6][1, 5] = float("nan")
+        route = K.segment_plan(batch, p, 5)["route"]
+        ref = K.admm_segment_plain(*ins, **kw)
+        for name, got in (("admm_segment", K.admm_segment(*ins, **kw)),
+                          ("admm_segment_grouped", K.admm_segment_grouped(
+                              *ins, group=1, **kw))):
+            torch.cuda.synchronize()
+            keep = torch.arange(batch, device=dev) != 1
+            for g, r in zip(got, ref):
+                check(torch.equal(g.isnan(), r.isnan())
+                      and bool(g[1, :nu].isnan().all())
+                      and float((g[keep] - r[keep]).abs().max()) <= 1e-4,
+                      f"{name} {route} P={p} B={batch}: the NaN lane "
+                      "leaked or the other lanes left the twin")
+        print(f"[kernels] {route} route, P={p} B={batch}: a NaN in lane 1 "
+              f"stays there in both segment wrappers")
 
 
 def segment_row(K, ins, batch, length, p=P, n_box=NU - BOX0):
@@ -438,14 +490,14 @@ def segment_row(K, ins, batch, length, p=P, n_box=NU - BOX0):
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     tol = 1e-4
-    variant = K.segment_plan(batch, p)["variant"]
+    plan = K.segment_plan(batch, p, length)
     ok = all(bool(torch.isfinite(a).all()) for a in got)
     check(ok and err <= tol, f"admm_segment B={batch} P={p} L={length} "
-          f"{variant}: err {err:.3e} > {tol}")
+          f"{plan['route']}: err {err:.3e} > {tol}")
     bms, by = segment_bound(batch, length, p)
     return dict(
         name="admm_segment", batch=batch, length=length, P=p, n_box=n_box,
-        variant=variant, forced=False, max_abs_err=err, tol=tol,
+        **segment_route(plan), forced=False, max_abs_err=err, tol=tol,
         ms=cuda_ms(lambda: K.admm_segment(*ins, **kw)),
         plain_ms=cuda_ms(lambda: K.admm_segment_plain(*ins, **kw), reps=10),
         bound_ms=bms, bound_by=by, library_ms=None)
@@ -537,8 +589,8 @@ def phase_kernels(K, dev, record):
     slow = []
     for r in rows:
         shape = ", ".join(f"{k}={r[k]}" for k in
-                          ("batch", "length", "group", "P", "variant", "route",
-                           "box0", "n_box", "n_ns", "cluster", "tile",
+                          ("batch", "length", "group", "P", "route", "box0",
+                           "n_box", "n_ns", "cluster", "kinv", "tile",
                            "kernels") if k in r)
         opt = lambda v: "none" if v is None else f"{v:.4f}"  # noqa: E731
         line = (f"[kernels] {r['name']}({shape}): err {r['max_abs_err']:.2e} "
@@ -563,6 +615,15 @@ def phase_kernels(K, dev, record):
                   f"{r['err_vs_single']:.2e}")
     check(not slow, "slower than the previous design by more than 10 %: "
           + "; ".join(slow))
+    # the spread route must not lose to the plain twin, whose batched
+    # products re-read K⁻¹ from device memory every iteration
+    losing = [f"{r['name']} P={r['P']} n_box={r['n_box']} B={r['batch']}: "
+              f"{r['ms']:.4f} ms against {r['plain_ms']:.4f}"
+              for r in rows if r["name"] != "woodbury_ns"
+              and r["P"] >= BIG_P and r["ms"] > r["plain_ms"]]
+    check(not losing, "segments at P >= 1152 slower than their plain twin: "
+          + "; ".join(losing))
+    segment_nan_lane(K, dev)
     wide = next(r for r in rows if r["name"] == "woodbury_ns"
                 and not r["forced"] and r["batch"] == BATCH and r["P"] == P
                 and r["n_box"] == NU and r["n_ns"] == 1)
@@ -608,15 +669,16 @@ def grouped_rows(K, dev):
         err1 = max(float((a - b).abs().max()) for a, b in zip(got, one))
         tol = 1e-4
         ok = all(bool(torch.isfinite(a).all()) for a in got)
-        variant = K.grouped_plan(batch, p, group)["variant"]
+        plan = K.grouped_plan(batch, p, group, length)
         check(ok and err <= tol and err1 <= tol,
               f"admm_segment_grouped B={batch} L={length} G={group} P={p} "
-              f"{variant}: err {err:.3e} (twin), {err1:.3e} (admm_segment) "
-              f"> {tol}")
+              f"{plan['route']}: err {err:.3e} (twin), {err1:.3e} "
+              f"(admm_segment) > {tol}")
         bms, by = segment_bound(batch, length, p)
         rows.append(dict(
             name="admm_segment_grouped", batch=batch, length=length,
-            group=group, P=p, n_box=nu - box0, variant=variant, forced=False,
+            group=group, P=p, n_box=nu - box0, **segment_route(plan),
+            forced=False,
             max_abs_err=err,
             err_vs_single=err1, tol=tol,
             ms=cuda_ms(lambda: K.admm_segment_grouped(
@@ -893,8 +955,10 @@ def phase_long_horizon(K, dev, record):
             mpc, replay, problem, carry, settings, batch, n, jit),
             n=LH_PROFILED)
         refresh = prof["kernels"].get("woodbury_ns")
-        check(refresh is not None,
-              f"long_horizon {name}: no woodbury_ns kernel in the profile")
+        segment = prof["kernels"].get("admm_segment")
+        check(refresh is not None and segment is not None,
+              f"long_horizon {name}: no woodbury_ns or admm_segment kernel "
+              "in the profile")
         out[name] = dict(batch=batch, ticks=LH_TICKS, nU=nu, P=p, n_box=nb,
                          ms_per_tick_first_included=wall_ms / LH_TICKS,
                          launches=launches, solved_frac=solved,
@@ -903,6 +967,13 @@ def phase_long_horizon(K, dev, record):
                          / prof["ticks"],
                          refresh_kernels_per_tick=refresh["calls"]
                          / prof["ticks"],
+                         segment_device_ms_per_tick=segment["total_ms"]
+                         / prof["ticks"],
+                         segment_kernels_per_tick=segment["calls"]
+                         / prof["ticks"],
+                         segment_plan=segment_route(
+                             K.segment_plan(batch, p, BENCH[
+                                 "term_check_every"])),
                          profile=prof)
         print(f"[long_horizon] {name}: nU {nu} (P {p}, n_box {nb}), "
               f"{LH_TICKS} ticks, solved fraction {solved}, launches "
@@ -912,8 +983,12 @@ def phase_long_horizon(K, dev, record):
               f"woodbury_ns {out[name]['refresh_device_ms_per_tick']:.4f} "
               f"device ms and {out[name]['refresh_kernels_per_tick']:.1f} "
               f"device kernels a tick (mean {refresh['mean_ms']:.4f} ms a "
-              f"kernel); device busy {prof['device_busy_ms']} ms of "
-              f"{prof['wall_ms']:.3f} ms wall, "
+              f"kernel); admm_segment "
+              f"{out[name]['segment_device_ms_per_tick']:.4f} device ms and "
+              f"{out[name]['segment_kernels_per_tick']:.1f} device kernels a "
+              f"tick (mean {segment['mean_ms']:.4f} ms a kernel, "
+              f"{out[name]['segment_plan']}); device busy "
+              f"{prof['device_busy_ms']} ms of {prof['wall_ms']:.3f} ms wall, "
               f"{prof['device_kernels_per_tick']:.1f} device kernels a tick")
     record["long_horizon"] = out
     return out
@@ -944,8 +1019,8 @@ def profile_window(run, n=10):
     ours = {}
     for ev in on_card:
         for name, marks in (("admm_segment", ("admm_segment_reg_kernel",
-                                              "admm_segment_streamed_kernel",
-                                              "admm_segment_wide_kernel")),
+                                              "admm_segment_cluster_kernel",
+                                              "admm_segment_spread_kernel")),
                             ("woodbury_ns", ("woodbury_ns_kernel",
                                              "woodbury_ns_general_"))):
             if any(m in ev.key for m in marks):

@@ -9,10 +9,11 @@
 //   x ← αx̃ + (1−α)x;  z_un = αx̃ + (1−α)z + y·ρ⁻¹
 //   z ← clip(z_un, lb, ub);  y ← ρ(z_un − z)
 //
-// What bounds it on an H100: the bytes of K⁻¹ (64 KB a scenario at P = 128,
-// read once a segment) when the card is full, and the latency of `length`
-// dependent mat-vecs when it is not (batch 1 runs on one SM). Two variants,
-// chosen by the padded size (mirrored by ops/kernels.segment_plan):
+// What bounds it on an H100: the bytes of K⁻¹ (4·P² a scenario, read once
+// a segment) when the card is full, and the latency of `length` dependent
+// mat-vecs when it is not (a lone scenario). Three routes, chosen by the
+// padded size and the batch (ops/kernels.segment_plan; the launcher takes
+// its choice and refuses what the routes do not take):
 //
 // - "registers" (P = 128): 512 threads a scenario keep K⁻¹ in registers for
 //   the whole segment, 32 entries each, loaded straight from device memory
@@ -26,13 +27,15 @@
 //   first of them writes the next rhs. One __syncthreads() an iteration.
 //   ~1 KB of shared memory and at most 64 registers: two blocks an SM, so
 //   256 scenarios are one wave.
-// - "streamed" (any other P up to 4096) and "wide" (beyond):
-//   ceil(P / 1024) coordinates a thread in a block of at most 1024, K⁻¹
-//   re-read through L2 every iteration, each coordinate's state in
-//   registers, or, for the wide variant, in device memory with rhs in a
-//   device scratch that the caller passes (B·P floats; `scratch` is not read
-//   at other sizes), so that device memory alone caps P (admm_segment.cuh,
-//   shared with admm_segment_grouped.cu, as is the iteration's vector half).
+// - "cluster" (P up to 640 where a cluster's shared memory holds K⁻¹): a
+//   scenario on a cluster of C blocks, each with a column strip of K⁻¹ in
+//   its shared memory or registers for the whole segment, rhs pushed into
+//   every block before one cluster barrier an iteration.
+// - "spread" (beyond): a strip of 32, 16 or 8 columns a block over the
+//   whole card, one launch an iteration, rhs in a device scratch of 2·B·P floats that the
+//   caller passes (`scratch` is not read by the other routes).
+// Both are in admm_segment.cuh, shared with admm_segment_grouped.cu, as is
+// the iteration's vector half.
 // Plain fp32 FMA on CUDA cores throughout, no TF32.
 
 #include "admm_segment.cuh"
@@ -129,28 +132,44 @@ __global__ void __launch_bounds__(kRegThreads, 2) admm_segment_reg_kernel(
 
 }  // namespace
 
+// Returns a CUDA error code; cudaErrorInvalidValue where the shape or the
+// route is outside what the kernels take (the Python wrapper checks the
+// same first). `cluster` (1, 2, 4 or 8 blocks a scenario; 0 for the spread
+// route), `kinv_regs` and `spread_cols` (8, 16 or 32 columns a spread
+// block) are segment_plan's; the register route at P = 128 reads none.
 extern "C" int admm_segment_launch(
     const float* kinv, const float* q, const float* lb, const float* ub,
     const float* rho, const float* rhoi, const float* x0, const float* z0,
     const float* y0, float* xo, float* zo, float* yo, float* scratch, int B,
     int P, float sigma, float alpha, float one_minus_alpha, int length,
-    cudaStream_t stream) {
+    int cluster, int kinv_regs, int spread_cols, cudaStream_t stream) {
   if (P < 32 || P % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B);
-  cfg.stream = stream;
   cudaError_t err;
   if (P == kRegP) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B);
     cfg.blockDim = dim3(kRegThreads);
+    cfg.stream = stream;
     err = cudaLaunchKernelEx(&cfg, admm_segment_reg_kernel, kinv, q, lb, ub,
                              rho, rhoi, x0, z0, y0, xo, zo, yo, sigma, alpha,
                              one_minus_alpha, length);
   } else {
-    err = launch_streamed(cfg, kinv, q, lb, ub, rho, rhoi, x0, z0, y0, xo, zo,
-                          yo, scratch, P, sigma, alpha, one_minus_alpha,
-                          length);
+    err = launch_segment_routes(B, stream, kinv, q, lb, ub, rho, rhoi, x0, z0,
+                                y0, xo, zo, yo, scratch, P, sigma, alpha,
+                                one_minus_alpha, length, cluster, kinv_regs,
+                                spread_cols);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dynamic shared memory in bytes of a block of the cluster route at (P, C,
+// kinv_regs), or -1 where the route does not take them (ops/kernels
+// .segment_cluster_smem_bytes and segment_cluster_takes mirror both)
+extern "C" long admm_segment_cluster_smem_bytes(int P, int cluster,
+                                                int kinv_regs) {
+  const int regs = kinv_regs ? 1 : 0;
+  if (P < 32 || P % 32 || !seg_cluster_takes(P, cluster, regs)) return -1;
+  return static_cast<long>(seg_cluster_smem_bytes(P, cluster, regs));
 }

@@ -12,8 +12,7 @@
 // On the TPU `group` sets how many scenarios one program tiles through its
 // fast memory. Here the placement follows the card, not `group`: the wrapper
 // keeps only its contract (B divisible by group, the same result for every
-// group), and the launcher chooses the variant by P (ops/kernels.grouped_plan
-// mirrors it).
+// group), and the launch is ops/kernels.grouped_plan's, chosen by P and B.
 //
 // What bounds it on an H100: not the bytes. Each K⁻¹ is read from device
 // memory once (64 KB a scenario at P = 128; 33.6 MB at B = 512 is 10 µs at
@@ -31,11 +30,12 @@
 //   shared memory a scenario-iteration costs more than a second wave;
 //   one column of 32 rows a thread (8 rhs float4 reads a thread, 4-way bank
 //   conflicts) and 16 rows × 2 columns (no faster than 8 × 4).
-// - "streamed" / "wide" (any other P, a multiple of 32): ceil(P / 1024)
-//   coordinates a thread, K⁻¹ re-read through L2 every iteration —
-//   admm_segment's kernels (admm_segment.cuh); the wide variant (P > 4096)
-//   takes a device scratch of B·P floats.
-// Plain fp32 FMA on CUDA cores, no TF32; __syncthreads() only.
+// - "cluster" / "spread" (any other P, a multiple of 32): a scenario's
+//   mat-vec spread over a cluster of blocks with K⁻¹ on chip, or over the
+//   card in one launch an iteration — admm_segment's kernels
+//   (admm_segment.cuh); the spread route takes a device scratch of 2·B·P
+//   floats.
+// Plain fp32 FMA on CUDA cores, no TF32.
 
 #include "admm_segment.cuh"
 
@@ -127,30 +127,31 @@ __global__ void __launch_bounds__(kThreads, 2) grouped_reg_kernel(
 
 // Returns a CUDA error code; cudaErrorInvalidValue where the shape is
 // outside what the kernel takes (the Python wrapper checks the same first).
-// `group` is checked, not used: the placement is chosen by P alone, as
-// ops/kernels.grouped_plan says.
+// `group` is checked, not used: the placement is grouped_plan's (`cluster`,
+// `kinv_regs`, `spread_cols`; the register route at P = 128 reads none).
 extern "C" int admm_segment_grouped_launch(
     const float* kinv, const float* q, const float* lb, const float* ub,
     const float* rho, const float* rhoi, const float* x0, const float* z0,
     const float* y0, float* xo, float* zo, float* yo, float* scratch, int B,
     int P, int G, float sigma, float alpha, float one_minus_alpha, int length,
-    cudaStream_t stream) {
+    int cluster, int kinv_regs, int spread_cols, cudaStream_t stream) {
   if (G < 1 || B % G || P < 32 || P % 32)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B);
-  cfg.stream = stream;
   cudaError_t err;
   if (P == kRegP) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B);
     cfg.blockDim = dim3(kThreads);
+    cfg.stream = stream;
     err = cudaLaunchKernelEx(&cfg, grouped_reg_kernel, kinv, q, lb, ub, rho,
                              rhoi, x0, z0, y0, xo, zo, yo, sigma, alpha,
                              one_minus_alpha, length);
   } else {
-    err = launch_streamed(cfg, kinv, q, lb, ub, rho, rhoi, x0, z0, y0, xo, zo,
-                          yo, scratch, P, sigma, alpha, one_minus_alpha,
-                          length);
+    err = launch_segment_routes(B, stream, kinv, q, lb, ub, rho, rhoi, x0, z0,
+                                y0, xo, zo, yo, scratch, P, sigma, alpha,
+                                one_minus_alpha, length, cluster, kinv_regs,
+                                spread_cols);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -5,7 +5,10 @@ Counterpart of ``ironcub_mpc_tpu/ops/pallas_solve.py``:
 
 - :func:`admm_segment` replaces ``pallas_solve.admm_segment`` — ``length``
   over-relaxed ADMM iterations with K⁻¹ resident on chip, in registers at
-  P = 128 (``csrc/admm_segment.cu``; :func:`segment_plan` picks the variant).
+  P = 128, in the column strips of a cluster of blocks up to P = 640, and
+  beyond spread over the card in a launch an iteration
+  (``csrc/admm_segment.cu`` and ``.cuh``; :func:`segment_plan` picks the
+  route).
 - :func:`admm_segment_grouped` replaces ``pallas_solve.admm_segment_grouped``
   — the same segment over a batch, every K⁻¹ in the registers of one block
   at P = 128 in a layout whose column sums take fewer shuffles than
@@ -127,10 +130,8 @@ def _lib(name: str):
         fn = getattr(lib, f"{name}_launch")
         fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "admm_segment":
-            fn.argtypes = [p] * 13 + [i, i, f, f, f, i, p]
-        elif name == "admm_segment_grouped":
-            fn.argtypes = [p] * 13 + [i, i, i, f, f, f, i, p]
+        if name in SEGMENT_ARGTYPES:
+            fn.argtypes = SEGMENT_ARGTYPES[name]
         else:
             fn.argtypes = [p] * 5 + [i, i, i, i, f, i, i, p]
             lib.woodbury_ns_smem_bytes.restype = i
@@ -138,6 +139,15 @@ def _lib(name: str):
             _bind_general(lib)
         _libs[name] = lib
     return lib
+
+
+# the segment launchers' C interfaces: 13 pointers, (B, P[, group]), σ, α,
+# 1 − α, length, cluster, K⁻¹ in registers, spread columns, the stream
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SEGMENT_ARGTYPES = {
+    "admm_segment": [_P] * 13 + [_I, _I, _F, _F, _F] + [_I] * 4 + [_P],
+    "admm_segment_grouped": [_P] * 13 + [_I] * 3 + [_F] * 3 + [_I] * 4
+    + [_P]}
 
 
 def _bind_general(lib):
@@ -215,51 +225,128 @@ def admm_segment_plain(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
 
 
 SEGMENT_REG_THREADS = 512
-# the streamed variant keeps up to 4 coordinates a thread in registers; the
-# wide variant, beyond, keeps its scenario's x, z, y and rhs in device memory
-SEGMENT_STREAMED_MAX_COORDS = 4
+# the cluster and spread routes (csrc/admm_segment.cuh, kept in step by
+# tests/test_torch_kernels.py): a warp of a cluster block owns 8 columns of
+# its strip, whose rows are padded by 4 floats in shared memory; K⁻¹'s strip
+# goes into registers only at P = 256, on at most 512 threads a block; a
+# spread block of 256 threads owns 32, 16 or 8 columns
+SEGMENT_COLS, SEGMENT_PAD = 8, 4
+SEGMENT_CLUSTERS = (1, 2, 4, 8)
+SEGMENT_REG_P, SEGMENT_REG_MAX_THREADS = 256, 512
+SEGMENT_SPREAD_WIDTHS, SEGMENT_SPREAD_THREADS = (32, 16, 8), 256
 
 
-def segment_streamed_threads(P: int) -> int:
-    """Threads of a streamed block (``streamed_threads`` of
-    csrc/admm_segment.cuh): ceil(P / 1024) coordinates a thread, the fewest
-    warps that cover P."""
-    per = -(-P // MAX_THREADS)
-    cover = -(-P // per)
-    return -(-cover // 32) * 32
+def segment_cluster_smem_bytes(P: int, C: int, regs: bool = False) -> int:
+    """Dynamic shared memory of a cluster block (``seg_cluster_smem_bytes``):
+    rhs [2, P] and, but where K⁻¹ lies in registers, the strip
+    [P, P/C + 4]."""
+    return 4 * (2 * P + (0 if regs else P * (P // C + SEGMENT_PAD)))
 
 
-def segment_plan(B: int, P: int) -> dict:
-    """The launch :func:`admm_segment` makes at padded size ``P``: the
-    variant, the blocks, the threads of a block, its shared memory and the
-    device scratch of the launch in floats.
+def segment_cluster_takes(P: int, C: int, regs: bool = False) -> bool:
+    """Whether the cluster route runs P on clusters of C
+    (``seg_cluster_takes``): the strip a multiple of 8 columns, at most 1024
+    threads (512 with K⁻¹ in registers, only at P = 256), the whole strip on
+    chip."""
+    if C not in SEGMENT_CLUSTERS or P % C or (P // C) % SEGMENT_COLS:
+        return False
+    threads = 32 * (P // C) // SEGMENT_COLS
+    if threads > (SEGMENT_REG_MAX_THREADS if regs else MAX_THREADS):
+        return False
+    if regs and P != SEGMENT_REG_P:
+        return False
+    return segment_cluster_smem_bytes(P, C, regs) <= MAX_SMEM
 
-    One rule, by size alone, which the source's launcher applies: K⁻¹ in
-    registers at P = 128 (the stock layout), else re-read through L2 every
-    iteration by a block of at most 1024 threads, ceil(P / 1024) coordinates
-    a thread: "streamed" with each coordinate's state in registers and rhs
-    in shared memory up to 4 coordinates a thread (P ≤ 4096), "wide" beyond
-    with x, z and y in the outputs and rhs in a device scratch of B·P
-    floats. Device memory is the only cap."""
+
+def segment_plan(B: int, P: int, length: int = 1, *, cluster=None,
+                 kinv_in_registers=None, spread_cols=None) -> dict:
+    """The launch :func:`admm_segment` makes at padded size ``P`` for a
+    segment of ``length`` iterations: the route, the cluster (blocks a
+    scenario), where K⁻¹ lies, the spread route's strip width, the blocks,
+    the threads of a block, its shared memory, the device scratch in floats
+    and the kernels a call.
+
+    Three routes. K⁻¹ in registers at P = 128 (the stock layout). Else a
+    scenario on a cluster of C blocks, each holding a column strip of K⁻¹
+    for the whole segment, where some cluster holds all of it (P up to
+    640): C is the largest such cluster where B·C blocks still have an SM
+    each (a lone scenario on 8 SMs), else the smallest (2 at P = 256: a
+    batch is then a block of 512 threads a scenario and SM); at P = 256
+    the strip lies in registers. Beyond, the "spread" route: a strip of 32
+    columns a block over the card — 16 or 8 where B·P / 32 blocks would
+    leave over half the SMs idle — one kernel an iteration, rhs in a device
+    scratch of 2·B·P floats. Device memory is the only cap. ``cluster`` (1,
+    2, 4 or 8; 0 for the spread route), ``kinv_in_registers`` and
+    ``spread_cols`` force a choice the launcher takes
+    (tools/bench_segment_streamed_torch.py times each)."""
     if P % 32 or P <= 0:
         raise ValueError(f"admm_segment: padded size {P} must be a positive "
                          f"multiple of 32")
     if P == LANE:
-        return dict(variant="registers", blocks=B,
-                    threads=SEGMENT_REG_THREADS, smem_bytes=4 * 2 * LANE,
-                    scratch_floats=0)
-    threads = segment_streamed_threads(P)
-    if -(-P // MAX_THREADS) <= SEGMENT_STREAMED_MAX_COORDS:
-        return dict(variant="streamed", blocks=B, threads=threads,
-                    smem_bytes=4 * P, scratch_floats=0)
-    return dict(variant="wide", blocks=B, threads=threads, smem_bytes=0,
-                scratch_floats=B * P)
+        return dict(route="registers", cluster=1, kinv_in_registers=True,
+                    spread_cols=0, blocks=B, threads=SEGMENT_REG_THREADS,
+                    smem_bytes=4 * 2 * LANE, scratch_floats=0, kernels=1)
+    if cluster is None:
+        whole = [c for c in SEGMENT_CLUSTERS if segment_cluster_takes(P, c)]
+        cluster = 0
+        if whole:
+            cluster = max(whole) if B * max(whole) <= NUM_SMS else min(whole)
+    if cluster == 0:
+        if kinv_in_registers:
+            raise ValueError("admm_segment: the spread route keeps no K⁻¹ "
+                             "in registers")
+        if spread_cols is None:
+            spread_cols = next((w for w in SEGMENT_SPREAD_WIDTHS
+                                if 2 * B * (P // w) >= NUM_SMS),
+                               SEGMENT_SPREAD_WIDTHS[-1])
+        if spread_cols not in SEGMENT_SPREAD_WIDTHS:
+            raise ValueError(f"admm_segment: the spread route does not take "
+                             f"strips of {spread_cols} columns")
+        return dict(route="spread", cluster=0, kinv_in_registers=False,
+                    spread_cols=spread_cols,
+                    blocks=B * (P // spread_cols),
+                    threads=SEGMENT_SPREAD_THREADS,
+                    smem_bytes=4 * 8 * spread_cols,
+                    scratch_floats=2 * B * P, kernels=max(1, int(length)))
+    if spread_cols is not None:
+        raise ValueError("admm_segment: spread_cols forced on the cluster "
+                         "route")
+    if kinv_in_registers is None:
+        kinv_in_registers = segment_cluster_takes(P, cluster, True)
+    regs = bool(kinv_in_registers)
+    if not segment_cluster_takes(P, cluster, regs):
+        raise ValueError(f"admm_segment: the cluster route does not take "
+                         f"P = {P} on clusters of {cluster}"
+                         f"{' with K⁻¹ in registers' if regs else ''}")
+    return dict(route="cluster", cluster=cluster, kinv_in_registers=regs,
+                spread_cols=0, blocks=B * cluster,
+                threads=32 * (P // cluster) // SEGMENT_COLS,
+                smem_bytes=segment_cluster_smem_bytes(P, cluster, regs),
+                scratch_floats=0, kernels=1)
 
 
-def _segment_scratch(plan: dict, like: torch.Tensor):
-    """The wide variant's device scratch, or None."""
+def _segment_launch(name: str, ins, plan: dict, *, sigma: float,
+                    alpha: float, length: int, group: int = 1):
+    """One call of a segment kernel's launches as ``plan`` says, on CUDA
+    tensors ``ins`` (K⁻¹ and the eight vectors), with the spread route's
+    scratch allocated on the current stream. Returns ``(x, z, y)``."""
+    x_f = ins[6]
+    B, P = ins[0].shape[0], ins[0].shape[-1]
+    xo, zo, yo = (torch.empty_like(x_f) for _ in range(3))
     n = plan["scratch_floats"]
-    return torch.empty(n, dtype=like.dtype, device=like.device) if n else None
+    scratch = torch.empty(n, dtype=x_f.dtype, device=x_f.device) if n \
+        else None
+    fn = getattr(_lib(name), f"{name}_launch")
+    shape = (B, P, int(group)) if name == "admm_segment_grouped" else (B, P)
+    with torch.cuda.device(x_f.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in (*ins, xo, zo, yo)),
+                None if scratch is None else scratch.data_ptr(), *shape,
+                float(sigma), float(alpha), float(1.0 - alpha), int(length),
+                plan["cluster"], int(plan["kinv_in_registers"]),
+                plan["spread_cols"], stream)
+    _raise_on(rc, name)
+    return xo, zo, yo
 
 
 def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
@@ -273,22 +360,14 @@ def admm_segment(Kinv_p, q_f, lb_f, ub_f, rho_f, rhoi_f, x_f, z_f, y_f,
                                   x_f, z_f, y_f, sigma=sigma, alpha=alpha,
                                   length=length)
     B, P = Kinv_p.shape[0], Kinv_p.shape[-1]
-    plan = segment_plan(B, P)
+    plan = segment_plan(B, P, length)
     vecs = dict(q_f=q_f, lb_f=lb_f, ub_f=ub_f, rho_f=rho_f, rhoi_f=rhoi_f,
                 x_f=x_f, z_f=z_f, y_f=y_f)
     _check_segment(Kinv_p, vecs)
-    xo, zo, yo = (torch.empty_like(x_f) for _ in range(3))
-    scratch = _segment_scratch(plan, x_f)
-    fn = _lib("admm_segment").admm_segment_launch
-    with torch.cuda.device(Kinv_p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in (Kinv_p, q_f, lb_f, ub_f, rho_f,
-                                         rhoi_f, x_f, z_f, y_f, xo, zo, yo)),
-                None if scratch is None else scratch.data_ptr(), B, P, float(sigma), float(alpha), float(1.0 - alpha),
-                int(length), stream)
-    _raise_on(rc, "admm_segment")
+    out = _segment_launch("admm_segment", (Kinv_p, *vecs.values()), plan,
+                          sigma=sigma, alpha=alpha, length=length)
     admm_segment.launches += 1
-    return xo, zo, yo
+    return out
 
 
 admm_segment.launches = 0
@@ -330,18 +409,18 @@ def admm_segment_grouped_plain(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b,
     return x.reshape(B, P), z.reshape(B, P), y.reshape(B, P)
 
 
-def grouped_plan(B: int, P: int, group: int) -> dict:
+def grouped_plan(B: int, P: int, group: int, length: int = 1) -> dict:
     """The launch :func:`admm_segment_grouped` makes: :func:`segment_plan`'s
-    rule and shapes (the source's launcher picks its variant by P as
-    csrc/admm_segment.cu's does), after checking that ``group`` divides B.
+    rule and shapes (the grouped source runs the same cluster and spread
+    kernels), after checking that ``group`` divides B.
 
     ``group`` is not used: the placement follows the card. At P = 128 each
     scenario's K⁻¹ stays in the registers of one block of 512 threads for
     the whole segment, two blocks an SM, in the grouped kernel's own layout;
-    any other padded size (a multiple of 32) streams K⁻¹ through L2 as
-    :func:`segment_plan` says."""
+    any other padded size (a multiple of 32) takes the cluster or the
+    spread route as :func:`segment_plan` says."""
     _check_group(B, group)
-    return segment_plan(B, P)
+    return segment_plan(B, P, length)
 
 
 def admm_segment_grouped(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b,
@@ -353,30 +432,23 @@ def admm_segment_grouped(Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b,
     divisible by ``group``. Returns the updated ``(x, z, y)``, each [B, P].
     ``group`` keeps only its contract: B must be divisible by it, and every
     group gives the same result. On the card the placement is
-    :func:`grouped_plan`'s, chosen by P (any padded size that is a multiple
-    of 32)."""
+    :func:`grouped_plan`'s, chosen by P and B (any padded size that is a
+    multiple of 32)."""
     B, P = Kinv_b.shape[0], Kinv_b.shape[-1]
     _check_group(B, group)
     if not _dispatch("admm_segment_grouped", Kinv_b):
         return admm_segment_grouped_plain(
             Kinv_b, q_b, lb_b, ub_b, rho_b, rhoi_b, x_b, z_b, y_b,
             sigma=sigma, alpha=alpha, length=length, group=group)
-    plan = grouped_plan(B, P, group)
+    plan = grouped_plan(B, P, group, length)
     vecs = dict(q_b=q_b, lb_b=lb_b, ub_b=ub_b, rho_b=rho_b, rhoi_b=rhoi_b,
                 x_b=x_b, z_b=z_b, y_b=y_b)
     _check_segment(Kinv_b, vecs)
-    xo, zo, yo = (torch.empty_like(x_b) for _ in range(3))
-    scratch = _segment_scratch(plan, x_b)
-    fn = _lib("admm_segment_grouped").admm_segment_grouped_launch
-    with torch.cuda.device(Kinv_b.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in (Kinv_b, q_b, lb_b, ub_b, rho_b,
-                                         rhoi_b, x_b, z_b, y_b, xo, zo, yo)),
-                None if scratch is None else scratch.data_ptr(), B, P, int(group), float(sigma), float(alpha),
-                float(1.0 - alpha), int(length), stream)
-    _raise_on(rc, "admm_segment_grouped")
+    out = _segment_launch("admm_segment_grouped", (Kinv_b, *vecs.values()),
+                          plan, sigma=sigma, alpha=alpha, length=length,
+                          group=group)
     admm_segment_grouped.launches += 1
-    return xo, zo, yo
+    return out
 
 
 admm_segment_grouped.launches = 0

@@ -22,8 +22,8 @@ from ironcub_mpc_tpu.qp import condensed as jcond
 
 from ironcub_mpc_tpu_torch.ops import kernels
 
-from test_torch_kernels_gpu import (ALPHA, NU, P, SHAPES, SIGMA,
-                                     _segment_inputs, _woodbury_inputs)
+from test_torch_kernels_gpu import (ALPHA, BOX02, NU, NU2, P, P2, SHAPES,
+                                     SIGMA, _segment_inputs, _woodbury_inputs)
 
 
 def _pallas_segment(ins, length):
@@ -71,6 +71,37 @@ def test_admm_segment_grouped_twin_matches_pallas(group):
                                   length=length)
     for g, r in zip(got, single):
         np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=1e-5)
+
+
+def test_admm_segment_twin_matches_pallas_at_p256():
+    """Twice the stock horizon (P = 256, where the card takes the cluster
+    route), the tolerances of test_admm_segment_twin_matches_pallas."""
+    batch, length = 2, 9
+    ins = _segment_inputs(31, batch, nu=NU2, box0=BOX02, p=P2)
+    ref = _pallas_segment(ins, length)
+    got = kernels.admm_segment(*(torch.as_tensor(v) for v in ins.values()),
+                               sigma=SIGMA, alpha=ALPHA, length=length)
+    for g, r, atol in zip(got, ref, (2e-4, 2e-4, 2e-3)):
+        assert g.shape == (batch, P2)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=atol)
+
+
+def test_admm_segment_grouped_twin_matches_pallas_at_p256():
+    """B = 4 at P = 256, two scenarios a program, against the Pallas
+    grouped kernel in interpret mode (the tolerances of
+    test_admm_segment_grouped_twin_matches_pallas)."""
+    batch, length = 4, 9
+    ins = _segment_inputs(32, batch, nu=NU2, box0=BOX02, p=P2)
+    ref = pallas_solve.admm_segment_grouped(
+        *(jnp.asarray(v) for v in ins.values()), sigma=SIGMA, alpha=ALPHA,
+        length=length, group=2)
+    got = kernels.admm_segment_grouped(
+        *(torch.as_tensor(v) for v in ins.values()), sigma=SIGMA,
+        alpha=ALPHA, length=length, group=2)
+    for g, r in zip(got, ref):
+        assert g.shape == (batch, P2)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                   atol=1e-4)
 
 
 def test_admm_segment_grouped_refuses_a_ragged_batch():
@@ -171,40 +202,86 @@ def _cuda_constants(source):
 
 
 @pytest.mark.parametrize("batch", [1, 64, 256])
-@pytest.mark.parametrize("p,variant", [(128, "registers"),
-                                       (256, "streamed"),
-                                       (1152, "streamed"), (4224, "wide")])
-def test_segment_plan_fits_the_card(p, variant, batch):
-    plan = kernels.segment_plan(batch, p)
-    assert plan["variant"] == variant
-    assert plan["blocks"] == batch
+@pytest.mark.parametrize("p,route", [(128, "registers"), (256, "cluster"),
+                                     (1152, "spread"), (4224, "spread")])
+def test_segment_plan_fits_the_card(p, route, batch):
+    plan = kernels.segment_plan(batch, p, 5)
+    assert plan["route"] == route
+    per = {"registers": 1, "cluster": plan["cluster"],
+           "spread": p // max(plan["spread_cols"], 1)}[route]
+    assert plan["blocks"] == batch * per
     assert 0 < plan["threads"] <= kernels.MAX_THREADS
     assert plan["threads"] % 32 == 0
-    # the wide variant keeps nothing in shared memory: its state lies in
-    # the outputs and its rhs in a device scratch of B·P floats
-    wide = variant == "wide"
-    assert (plan["smem_bytes"] == 0) == wide
-    assert plan["smem_bytes"] <= kernels.MAX_SMEM
-    assert plan["scratch_floats"] == (batch * p if wide else 0)
+    assert 0 < plan["smem_bytes"] <= kernels.MAX_SMEM
+    # the spread route: rhs in a double-buffered device scratch of 2·B·P
+    # floats, the state in the outputs, one kernel an iteration
+    spread = route == "spread"
+    assert plan["scratch_floats"] == (2 * batch * p if spread else 0)
+    assert plan["kernels"] == (5 if spread else 1)
+    if route == "cluster":
+        # the whole strip on chip for the segment, in registers at P = 256;
+        # a lone scenario on 8 blocks, a batch on 2 (one block of 512
+        # threads a scenario and SM)
+        assert plan["kinv_in_registers"] == (p == kernels.SEGMENT_REG_P)
+        assert plan["threads"] == 32 * (p // plan["cluster"]) // 8
+        assert plan["cluster"] == (8 if batch == 1 else 2)
+    if spread:
+        # the widest strip whose blocks cover half the card's 132 SMs
+        assert plan["spread_cols"] == {(1152, 1): 16, (4224, 1): 32}.get(
+            (p, batch), 32)
 
 
 def test_segment_plan_refuses_what_the_kernel_does_not_take():
-    """Above P = 1024 a thread takes ceil(P / 1024) coordinates (P = 1152
-    and 2048 were refused before); above 4096 the wide variant keeps its
-    state in device memory, so no size is refused for the card's shared
-    memory (P = 14,560 was, while the wide variant kept it there). What is
-    refused is a size that is no positive multiple of 32."""
-    for p, threads in ((192, 192), (1024, 1024), (1056, 544), (1152, 576),
-                       (2048, 1024), (3104, 800), (4096, 1024), (4128, 832),
-                       (14560, 992), (65536, 1024)):
-        plan = kernels.segment_plan(4, p)
-        assert plan["variant"] == ("streamed" if p <= 4096 else "wide")
-        assert plan["threads"] == threads <= kernels.MAX_THREADS
-        per = -(-p // kernels.MAX_THREADS)
-        assert (threads - 32) * per < p <= threads * per
+    """Every positive multiple of 32 runs: on a cluster whose shared memory
+    holds every strip whole (P up to 640), the largest whose B·C blocks are
+    one wave of the card (else the smallest), or spread over the card
+    beyond, with device memory its only cap. A size that is no positive
+    multiple of 32 is refused, and so is a forced choice the launcher does
+    not take."""
+    for p in range(32, 4320, 32):
+        if p == kernels.LANE:
+            continue
+        for batch in (1, 64, 256):
+            plan = kernels.segment_plan(batch, p, 5)
+            c = plan["cluster"]
+            whole = [k for k in kernels.SEGMENT_CLUSTERS
+                     if kernels.segment_cluster_takes(p, k)]
+            assert (plan["route"] == "cluster") == bool(whole), p
+            if whole:
+                assert c == (max(whole) if batch * max(whole) <=
+                             kernels.NUM_SMS else min(whole))
+                assert plan["smem_bytes"] == \
+                    kernels.segment_cluster_smem_bytes(
+                        p, c, plan["kinv_in_registers"])
+            else:
+                w = plan["spread_cols"]
+                assert (c, plan["blocks"]) == (0, batch * p // w)
+                assert w == 32 or batch * p // w < kernels.NUM_SMS
+                assert w == 8 or 2 * batch * p // w >= kernels.NUM_SMS
+    # the widest P a cluster holds whole (P = 640 on 8 blocks), and the
+    # first it does not
+    assert kernels.segment_plan(1, 640)["route"] == "cluster"
+    assert kernels.segment_plan(1, 672)["route"] == "spread"
+    assert kernels.segment_plan(1, 704)["route"] == "spread"
     for p in (0, -32, 100, 130):
         with pytest.raises(ValueError, match="multiple of 32"):
             kernels.segment_plan(1, p)
+    # a cluster whose shared memory holds only part of each strip (P = 256
+    # on one block, P = 640 on 4, P = 1152 on 8) is not taken
+    for p, force in ((256, dict(cluster=3)), (288, dict(cluster=8)),
+                     (640, dict(cluster=1)), (640, dict(cluster=4)),
+                     (256, dict(cluster=1, kinv_in_registers=False)),
+                     (1152, dict(cluster=8)),
+                     (640, dict(cluster=8, kinv_in_registers=True)),
+                     (256, dict(cluster=1, kinv_in_registers=True))):
+        with pytest.raises(ValueError, match="does not take"):
+            kernels.segment_plan(1, p, **force)
+    with pytest.raises(ValueError, match="spread route"):
+        kernels.segment_plan(1, 1152, cluster=0, kinv_in_registers=True)
+    with pytest.raises(ValueError, match="strips of 64 columns"):
+        kernels.segment_plan(1, 1152, spread_cols=64)
+    with pytest.raises(ValueError, match="spread_cols forced"):
+        kernels.segment_plan(1, 256, spread_cols=32)
 
 
 def test_segment_plan_matches_the_cuda_source():
@@ -213,31 +290,54 @@ def test_segment_plan_matches_the_cuda_source():
     assert c["kRegThreads"] == kernels.SEGMENT_REG_THREADS
     plan = kernels.segment_plan(1, kernels.LANE)
     assert plan["threads"] == c["kRegThreads"]
-    # static shared memory of the register variant: rhs, double-buffered
+    # static shared memory of the register route: rhs, double-buffered
     assert "__shared__ float4 s_rhs[2][kRegP / 4];" in text
     assert plan["smem_bytes"] == 2 * c["kRegP"] * 4
-    # the launcher picks the variant by the same rule as the plan; the
-    # streamed variants (the shared header) take ceil(P / 1024) coordinates
-    # a thread, in registers up to 4 (rhs alone in shared memory), beyond
-    # that with x, z and y in the outputs and rhs in the caller's scratch
+    # the launcher takes the register route at P = 128 and hands every
+    # other size to the shared header's routes with the plan's choice
     assert "if (P == kRegP) {" in text
-    assert "err = launch_streamed(cfg, kinv," in text
+    assert "err = launch_segment_routes(B, stream, kinv," in text
     head, h = _cuda_constants("admm_segment.cuh")
-    assert h["kStreamedMaxCoords"] == kernels.SEGMENT_STREAMED_MAX_COORDS
-    assert "kMaxSegmentSmem" not in h and "kWideVectors" not in h
-    assert "cfg.blockDim = dim3(streamed_threads(P));" in head
-    assert "cfg.dynamicSmemBytes = streamed_smem_bytes(P);" in head
-    assert "const int per = (P + 1023) / 1024;" in head
-    assert "return ((P + per - 1) / per + 31) / 32 * 32;" in head
-    assert "return (P + 1023) / 1024 > kStreamedMaxCoords;" in head
-    assert ("return streamed_wide(P) ? 0 : sizeof(float) * "
-            "static_cast<size_t>(P);") in head
-    assert ("return streamed_wide(P) ? static_cast<size_t>(P) : 0;"
-            in head)
-    assert "if (scratch == nullptr) return cudaErrorInvalidValue;" in head
-    for c in range(1, kernels.SEGMENT_STREAMED_MAX_COORDS + 1):
-        assert f"admm_segment_streamed_kernel<{c}>," in head
-    assert "admm_segment_wide_kernel," in head
+    assert h["kSegCols"] == kernels.SEGMENT_COLS
+    assert h["kSegPad"] == kernels.SEGMENT_PAD
+    assert kernels.SEGMENT_CLUSTERS == (1, 2, 4, 8)
+    assert h["kSegMaxThreads"] == kernels.MAX_THREADS
+    assert h["kSegMaxSmem"] == kernels.MAX_SMEM
+    assert h["kSegRegP"] == kernels.SEGMENT_REG_P
+    assert h["kSegRegMaxThreads"] == kernels.SEGMENT_REG_MAX_THREADS
+    assert h["kSpreadThreads"] == kernels.SEGMENT_SPREAD_THREADS
+    assert "kStreamedMaxCoords" not in h
+    # the cluster route: one block a strip of P / C columns, 8 a warp, the
+    # strip's rows padded by kSegPad, rhs double-buffered beside them
+    assert "cfg.gridDim = dim3(B * cluster);" in head
+    assert "cfg.blockDim = dim3(32 * (P / cluster) / kSegCols);" in head
+    assert "const size_t rows = regs ? 0 : static_cast<size_t>(P);" in head
+    assert ("return sizeof(float) * (2 * static_cast<size_t>(P) +\n"
+            "                          rows * (P / C + kSegPad));") in head
+    assert "return seg_cluster_smem_bytes(P, C, regs) <= kSegMaxSmem;" in head
+    assert "if (C != 1 && C != 2 && C != 4 && C != 8) return false;" in head
+    assert ("if (threads > (regs ? kSegRegMaxThreads : kSegMaxThreads)) "
+            "return false;") in head
+    assert "if (regs && P != kSegRegP) return false;" in head
+    assert "admm_segment_cluster_kernel<kSegRegRows>" in head
+    assert "admm_segment_cluster_kernel<0>;" in head
+    # the spread route: a strip of 32, 16 or 8 columns a block, a kernel an
+    # iteration (one for length 0), refused without its scratch, with K⁻¹
+    # in registers or with another width
+    assert "cfg.gridDim = dim3(B * (P / kW));" in head
+    assert "cfg.blockDim = dim3(kSpreadThreads);" in head
+    assert "return length > 1 ? length : 1;" in head
+    assert ("if (scratch == nullptr || kinv_regs) return "
+            "cudaErrorInvalidValue;") in head
+    assert "const size_t half = static_cast<size_t>(B) * P;" in head
+    for w in kernels.SEGMENT_SPREAD_WIDTHS:
+        assert f"case {w}: return launch_spread<{w}>(ADMM_SPREAD_ARGS);" \
+            in head
+    for kernel in ("admm_segment_spread_kernel<true, kW>",
+                   "admm_segment_spread_kernel<false, kW>"):
+        assert kernel in head
+    for old in ("admm_segment_streamed_kernel", "admm_segment_wide_kernel"):
+        assert old not in head + text
 
 
 @pytest.mark.parametrize("n_ns", [0, 1])
@@ -400,14 +500,17 @@ def test_woodbury_general_layout_matches_the_cuda_source():
 @pytest.mark.parametrize("batch,group", [(1, 1), (256, 8), (265, 5),
                                          (512, 16), (1056, 8)])
 def test_grouped_plan_fits_the_card(p, batch, group):
-    """K⁻¹ in the registers of one block a scenario at P = 128, any other
-    size streamed, as segment_plan says; ``group`` changes nothing but the
-    check that it divides B."""
-    plan = kernels.grouped_plan(batch, p, group)
-    assert plan == kernels.grouped_plan(batch, p, 1) == \
-        kernels.segment_plan(batch, p)
-    assert plan["variant"] == ("registers" if p == 128 else "streamed")
-    assert plan["blocks"] == batch
+    """K⁻¹ in the registers of one block a scenario at P = 128, a cluster up
+    to P = 640 and spread beyond, as segment_plan says; ``group`` changes
+    nothing but the check that it divides B."""
+    plan = kernels.grouped_plan(batch, p, group, 5)
+    assert plan == kernels.grouped_plan(batch, p, 1, 5) == \
+        kernels.segment_plan(batch, p, 5)
+    assert plan["route"] == ("registers" if p == 128 else
+                             "cluster" if p <= 640 else "spread")
+    assert plan["blocks"] == batch * (1 if p == 128 else
+                                      p // plan["spread_cols"] if p > 640
+                                      else plan["cluster"])
     assert plan["threads"] <= kernels.MAX_THREADS
 
 
@@ -415,8 +518,9 @@ def test_grouped_plan_refuses_what_the_kernel_does_not_take():
     # P = 1056 was refused before, and P = 14,560 while the wide variant
     # kept its state in shared memory; now only a size that is no positive
     # multiple of 32
-    assert kernels.grouped_plan(8, 1056, 1)["variant"] == "streamed"
-    assert kernels.grouped_plan(8, 14560, 1)["scratch_floats"] == 8 * 14560
+    assert kernels.grouped_plan(8, 1056, 1)["route"] == "spread"
+    assert kernels.grouped_plan(8, 14560, 1)["scratch_floats"] == \
+        2 * 8 * 14560
     for p in (0, 100):
         with pytest.raises(ValueError, match="multiple of 32"):
             kernels.grouped_plan(8, p, 1)
@@ -428,8 +532,8 @@ def test_grouped_plan_refuses_what_the_kernel_does_not_take():
 
 def test_grouped_plan_matches_the_cuda_source():
     """The grouped source launches as segment_plan says: the register
-    variant at P = 128 (512 threads, 1 KB of static shared memory), else
-    the shared streamed kernel."""
+    route at P = 128 (512 threads, 1 KB of static shared memory), else
+    the shared header's cluster and spread routes."""
     text, c = _cuda_constants("admm_segment_grouped.cu")
     assert c["kRegP"] == kernels.LANE
     assert c["kThreads"] == kernels.SEGMENT_REG_THREADS
@@ -439,7 +543,8 @@ def test_grouped_plan_matches_the_cuda_source():
     assert plan["smem_bytes"] == 2 * c["kRegP"] * 4
     assert "if (P == kRegP) {" in text
     assert "cfg.blockDim = dim3(kThreads);" in text
-    assert "err = launch_streamed(cfg, kinv," in text
+    assert "err = launch_segment_routes(B, stream, kinv," in text
+    assert "launch_streamed" not in text
 
 
 def _layout_bytes(c, P, n, n_ns, cluster):

@@ -14,9 +14,11 @@ launches over output tiles and its elimination on a cluster of 1, 2 or 8
 blocks, at P = 256 with a box of 132, P = 384, P = 640, M in shared and in
 device memory, ragged tile edges), every Gauss–Jordan elimination, ragged
 boxes and the pivot clamp, and P = 1152, above the 1024 threads of a block
-(the segments' streamed route with two coordinates a thread, the general
-route with n_ns = 0; its Newton–Schulz products at that size are left to
-the card).
+(the general route with n_ns = 0; its Newton–Schulz products at that size
+are left to the card). The segments' cluster route runs on clusters of 1,
+2, 4 and 8 blocks with K⁻¹'s strip in shared memory, in registers and in
+shared memory only in part, their spread route at P = 1152 and 4224 (a
+launch an iteration, NaN-filled scratch).
 What the stand-in cannot see (timing, bank conflicts, a race between two
 barriers) stays with the card. Skips where there is no ``g++`` with C++20's
 ``<barrier>``.
@@ -79,58 +81,64 @@ def emulated(tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-3000:]
         libs[name] = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs["admm_segment"].admm_segment_launch.argtypes = (
-        [p] * 13 + [i, i, f, f, f, i, p])
+    for name, argtypes in kernels.SEGMENT_ARGTYPES.items():
+        getattr(libs[name], f"{name}_launch").argtypes = argtypes
+    fn = libs["admm_segment"].admm_segment_cluster_smem_bytes
+    fn.argtypes, fn.restype = [i, i, i], ctypes.c_long
     libs["woodbury_ns"].woodbury_ns_launch.argtypes = (
         [p] * 5 + [i, i, i, i, f, i, i, p])
     libs["woodbury_ns"].woodbury_ns_smem_bytes.argtypes = [i, i, i, i]
     kernels._bind_general(libs["woodbury_ns"])
-    libs["admm_segment_grouped"].admm_segment_grouped_launch.argtypes = (
-        [p] * 13 + [i, i, i, f, f, f, i, p])
     return libs
 
 
-def _scratch(ins):
-    """The wide variant's scratch, NaN-filled so that a read of an entry
-    never written shows; None at the sizes that take none (and at sizes
-    the plan refuses, which the launcher must refuse too)."""
+def _plan(ins, length, force):
+    """segment_plan's launch for ``ins`` (``force`` its cluster or K⁻¹'s
+    place), or, at a size the plan refuses (which the launcher must refuse
+    too), the spread route's arguments."""
     B, p = ins[0].shape[0], ins[0].shape[-1]
-    n = kernels.segment_plan(B, p)["scratch_floats"] if p % 32 == 0 else 0
-    return torch.full((n,), float("nan")) if n else None
+    if p % 32:
+        return dict(cluster=0, kinv_in_registers=False, spread_cols=32,
+                    scratch_floats=0)
+    return kernels.segment_plan(B, p, length, **force)
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _segment(lib, ins, length):
+def _launch(lib, name, ins, length, *shape, **force):
+    """The launcher of ``name`` on ``ins`` as the plan says, the spread
+    route's scratch and the outputs NaN-filled, so that a read of an entry
+    never written shows."""
+    plan = _plan(ins, length, force)
     outs = [torch.full_like(ins[6], float("nan")) for _ in range(3)]
-    B, p = ins[0].shape[0], ins[0].shape[-1]
-    scratch = _scratch(ins)
-    rc = lib.admm_segment_launch(
-        *(t.data_ptr() for t in ins + outs), _ptr(scratch), B, p, SIGMA,
-        ALPHA, 1.0 - ALPHA, length, None)
+    n = plan["scratch_floats"]
+    scratch = torch.full((n,), float("nan")) if n else None
+    rc = getattr(lib, f"{name}_launch")(
+        *(t.data_ptr() for t in ins + outs),
+        None if scratch is None else scratch.data_ptr(), *shape, SIGMA, ALPHA,
+        1.0 - ALPHA, length, plan["cluster"], int(plan["kinv_in_registers"]),
+        plan["spread_cols"], None)
     return rc, outs
 
 
-def _segment_sized(lib, ins, length, p):
+def _segment(lib, ins, length, **force):
+    return _launch(lib, "admm_segment", ins, length, ins[0].shape[0],
+                   ins[0].shape[-1], **force)
+
+
+def _segment_sized(lib, ins, length, p, cluster=0, regs=0, cols=32,
+                   scratch=None):
     """A launch that claims padded size ``p`` whatever the tensors hold,
-    with no scratch."""
+    on the route ``cluster`` (0: spread, strips of ``cols``) says."""
     outs = [torch.zeros_like(ins[6]) for _ in range(3)]
     rc = lib.admm_segment_launch(
-        *(t.data_ptr() for t in ins + outs), None, 1, p, SIGMA, ALPHA,
-        1.0 - ALPHA, length, None)
+        *(t.data_ptr() for t in ins + outs),
+        None if scratch is None else scratch.data_ptr(), 1, p, SIGMA, ALPHA,
+        1.0 - ALPHA, length, cluster, regs, cols, None)
     return rc, outs
 
 
-def _grouped(lib, ins, length, group):
-    outs = [torch.full_like(ins[6], float("nan")) for _ in range(3)]
-    B, p = ins[0].shape[0], ins[0].shape[-1]
-    scratch = _scratch(ins)
-    rc = lib.admm_segment_grouped_launch(
-        *(t.data_ptr() for t in ins + outs), _ptr(scratch), B, p, group,
-        SIGMA, ALPHA, 1.0 - ALPHA, length, None)
-    return rc, outs
+def _grouped(lib, ins, length, group, **force):
+    return _launch(lib, "admm_segment_grouped", ins, length, ins[0].shape[0],
+                   ins[0].shape[-1], group, **force)
 
 
 def _general(lib, ins, box0, n_box, n_ns, **force):
@@ -171,7 +179,7 @@ P_WIDE = 4224
 def test_segment_sources_wide_variant_matches_twin(emulated, name):
     ins = [torch.as_tensor(v).contiguous() for v in
            _wide_inputs(18, 2, P_WIDE).values()]
-    assert kernels.segment_plan(1, P_WIDE)["variant"] == "wide"
+    assert kernels.segment_plan(2, P_WIDE, 2)["route"] == "spread"
     ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=2)
     if name == "admm_segment":
         rc, got = _segment(emulated[name], ins, 2)
@@ -185,9 +193,11 @@ def test_segment_sources_wide_variant_matches_twin(emulated, name):
 @pytest.mark.parametrize("p,nu,box0", [(P, 120, 96), (P2, NU2, BOX02),
                                        (P_BIG, *BIG_BOXES[0]),
                                        (P_BIG, *BIG_BOXES[1])],
-                         ids=["registers", "streamed", "streamed-1152-box8",
-                              "streamed-1152-box132"])
+                         ids=["registers", "cluster", "spread-1152-box8",
+                              "spread-1152-box132"])
 def test_admm_segment_source_matches_twin(emulated, p, nu, box0):
+    """Each route as the plan launches it at B = 2 (P = 1152 on 32-column
+    strips, 36 blocks a scenario)."""
     ins = [torch.as_tensor(v).contiguous() for v in
            _segment_inputs(1, 2, nu=nu, box0=box0, p=p).values()]
     ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=5)
@@ -218,6 +228,138 @@ def test_admm_segment_source_keeps_nan_and_refuses_bad_shapes(emulated):
     assert _segment(lib, odd, 1)[0] != 0
     rc, _ = _segment_sized(lib, odd, 1, P_WIDE)
     assert rc != 0
+
+
+SEGMENTS = ["admm_segment", "admm_segment_grouped"]
+
+
+def _route(lib, name, ins, length, **force):
+    return (_segment(lib, ins, length, **force) if name == "admm_segment"
+            else _grouped(lib, ins, length, ins[0].shape[0], **force))
+
+
+def _hold(got, ref, atol=1e-5):
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("name", SEGMENTS)
+@pytest.mark.parametrize("cluster,regs", [(2, False), (4, False), (8, False),
+                                          (2, True), (4, True), (8, True)])
+def test_segment_cluster_route_matches_twin(emulated, name, cluster, regs):
+    """P = 256 (the long horizon) on clusters of 2, 4 and 8 blocks, the
+    strip in shared memory and in registers; two scenarios, so that each
+    cluster reads and writes only its own."""
+    ins = [torch.as_tensor(v).contiguous() for v in
+           _segment_inputs(21, 2, nu=NU2, box0=BOX02, p=P2).values()]
+    plan = kernels.segment_plan(2, P2, 3, cluster=cluster,
+                                kinv_in_registers=regs)
+    assert plan["route"] == "cluster"
+    ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=3)
+    rc, got = _route(emulated[name], name, ins, 3, cluster=cluster,
+                     kinv_in_registers=regs)
+    assert rc == 0
+    _hold(got, ref)
+
+
+@pytest.mark.parametrize("name", SEGMENTS)
+@pytest.mark.parametrize("p,force", [(640, {}), (384, dict(cluster=4)),
+                                     (384, dict(cluster=8))],
+                         ids=["p640-cluster8", "p384-cluster4",
+                              "p384-cluster8"])
+def test_segment_cluster_route_at_other_sizes(emulated, name, p, force):
+    """P = 640 as the plan launches it (the widest P a cluster of 8 holds
+    whole, 80 columns a block) and P = 384 on clusters of 4 and 8, the
+    strip in shared memory, two scenarios."""
+    batch = 2
+    ins = [torch.as_tensor(v).contiguous() for v in
+           _segment_inputs(22, batch, nu=p - 16, box0=p - 150, p=p).values()]
+    plan = kernels.segment_plan(batch, p, 2, **force)
+    assert (plan["route"], plan["kinv_in_registers"]) == ("cluster", False)
+    ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=2)
+    rc, got = _route(emulated[name], name, ins, 2, **force)
+    assert rc == 0
+    _hold(got, ref)
+
+
+@pytest.mark.parametrize("name", SEGMENTS)
+@pytest.mark.parametrize("cols", kernels.SEGMENT_SPREAD_WIDTHS)
+def test_segment_spread_route_matches_twin(emulated, name, cols):
+    """P = 1152 spread over strips of 32, 16 and 8 columns (32 is the
+    plan's at batch 2: 72 blocks, 16 at batch 1), one launch an iteration, two scenarios reading
+    and writing their own halves of the NaN-filled scratch; 1152 is no
+    multiple of the 64 and 128 rows a round of the narrower strips reads,
+    so their last rounds are ragged."""
+    ins = [torch.as_tensor(v).contiguous() for v in
+           _segment_inputs(23, 2, nu=BIG_BOXES[1][0],
+                           box0=BIG_BOXES[1][1], p=P_BIG).values()]
+    assert kernels.segment_plan(2, P_BIG, 2)["spread_cols"] == 32
+    assert kernels.segment_plan(1, P_BIG, 2)["spread_cols"] == 16
+    plan = kernels.segment_plan(2, P_BIG, 2, spread_cols=cols)
+    assert (plan["route"], plan["blocks"], plan["kernels"],
+            plan["scratch_floats"]) == ("spread", 2 * P_BIG // cols, 2,
+                                        2 * 2 * P_BIG)
+    ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=2)
+    rc, got = _route(emulated[name], name, ins, 2, spread_cols=cols)
+    assert rc == 0
+    _hold(got, ref)
+
+
+@pytest.mark.parametrize("p,force", [(P2, {}), (P_BIG, {})],
+                         ids=["cluster", "spread"])
+def test_segment_routes_keep_nan_and_length_zero(emulated, p, force):
+    """A NaN in one scenario's x stays in that scenario on both routes, the
+    other matching the twin; a segment of length 0 returns the state."""
+    lib = emulated["admm_segment"]
+    ins = [torch.as_tensor(v).contiguous() for v in
+           _segment_inputs(24, 2, nu=p - 16, box0=p - 64, p=p).values()]
+    ins[6][1, 5] = float("nan")
+    ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=2)
+    rc, got = _segment(lib, ins, 2, **force)
+    assert rc == 0
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(np.isnan(g.numpy()),
+                                      np.isnan(r.numpy()))
+        assert np.isnan(g.numpy()[1, :p - 16]).all()
+        np.testing.assert_allclose(g.numpy()[0], r.numpy()[0], rtol=0,
+                                   atol=1e-5)
+    rc, got = _segment(lib, ins, 0, **force)
+    assert rc == 0
+    for g, v in zip(got, ins[6:]):
+        assert torch.equal(g.isnan(), v.isnan())
+        assert torch.equal(g.nan_to_num(), v.nan_to_num())
+
+
+def test_segment_routes_refuse_what_they_do_not_take(emulated):
+    """The launcher refuses, before it reads anything (small tensors stand
+    in): a cluster of 3 or 16, a strip that is no multiple of 8 columns
+    (P = 288 on 8 blocks), more than 1024 threads (P = 640 on one block), a
+    strip its block's shared memory does not hold whole (P = 256 on one
+    block, 1152 on 8),
+    K⁻¹ in registers at another P than 256 or on more than 512 threads, the
+    spread route with K⁻¹ in registers, without its scratch or with strips
+    of 4 or 64 columns; and the shared memory of every cluster block is the
+    plan's."""
+    odd = [torch.zeros(1, 32, 32)] + [torch.zeros(1, 32)] * 8
+    scratch = torch.zeros(2 * P_BIG)
+    lib = emulated["admm_segment"]
+    for p, cluster, regs, cols, s in (
+            (P2, 3, 0, 0, None), (P2, 16, 0, 0, None), (288, 8, 0, 0, None),
+            (640, 1, 0, 0, None), (P2, 1, 0, 0, None), (P_BIG, 8, 0, 0, None),
+            (640, 8, 1, 0, None), (P2, 1, 1, 0, None),
+            (P_BIG, 0, 1, 32, scratch), (P_BIG, 0, 0, 32, None),
+            (P_BIG, 0, 0, 4, scratch), (P_BIG, 0, 0, 64, scratch)):
+        assert _segment_sized(lib, odd, 1, p, cluster, regs, cols,
+                              s)[0] != 0, (p, cluster, regs, cols)
+        assert not (cluster and kernels.segment_cluster_takes(p, cluster,
+                                                               bool(regs)))
+    for p in range(32, 2080, 32):
+        for c in (1, 2, 3, 4, 8, 16):
+            for regs in (False, True):
+                want = (kernels.segment_cluster_smem_bytes(p, c, regs)
+                        if kernels.segment_cluster_takes(p, c, regs) else -1)
+                assert lib.admm_segment_cluster_smem_bytes(p, c, regs) == \
+                    want, (p, c, regs)
 
 
 @pytest.mark.parametrize("n_ns", [0, 2])
@@ -353,18 +495,20 @@ def test_woodbury_ns_general_source_pivot_clamp(emulated):
                           (2, P2, P2 - 16, P2 - 64), (2, 384, 368, 320),
                           (1, P_BIG, *BIG_BOXES[0]),
                           (1, P_BIG, *BIG_BOXES[1])],
-                         ids=["registers", "registers-odd", "streamed",
-                              "streamed-384", "streamed-1152-box8",
-                              "streamed-1152-box132"])
+                         ids=["registers", "registers-odd", "cluster",
+                              "cluster-384", "spread-1152-box8",
+                              "spread-1152-box132"])
 def test_admm_segment_grouped_source_matches_twin(emulated, batch, p, nu,
                                                   box0):
-    """Both variants of the grouped segment, every group giving the same
-    result."""
+    """Every route of the grouped segment, every group giving the same
+    result (P = 1152 at B = 1 on 32-column strips, not the plan's 16:
+    test_segment_spread_route_matches_twin runs every width)."""
     ins = [torch.as_tensor(v).contiguous() for v in
            _segment_inputs(15, batch, nu=nu, box0=box0, p=p).values()]
     ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=4)
     lib = emulated["admm_segment_grouped"]
-    runs = [_grouped(lib, ins, 4, g) for g in (1, batch)]
+    force = dict(spread_cols=32) if p == P_BIG else {}
+    runs = [_grouped(lib, ins, 4, g, **force) for g in (1, batch)]
     for rc, got in runs:
         assert rc == 0
         for g, r in zip(got, ref):

@@ -183,13 +183,13 @@ def test_admm_segment_grouped_cuda_refuses_what_does_not_fit(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,p,variant", [(64, P, "registers"),
-                                             (64, P2, "streamed"),
-                                             (8, 384, "streamed")])
+                                             (64, P2, "cluster"),
+                                             (8, 384, "cluster")])
 def test_admm_segment_grouped_routes_cuda_match_twin(cuda, batch, p,
                                                      variant):
-    """Each variant of grouped_plan, every group that divides the batch
+    """Each route of grouped_plan, every group that divides the batch
     giving the same result."""
-    assert kernels.grouped_plan(batch, p, 8)["variant"] == variant
+    assert kernels.grouped_plan(batch, p, 8)["route"] == variant
     nu, box0 = (120, 96) if p == P else (p - 16, p - 64)
     ins = {k: torch.as_tensor(v) for k, v in
            _segment_inputs(9, batch, nu=nu, box0=box0, p=p).items()}
@@ -209,14 +209,13 @@ def test_admm_segment_grouped_routes_cuda_match_twin(cuda, batch, p,
 @pytest.mark.parametrize("p,box0", [(1152, 1132), (1152, 1008), (4224, None)],
                          ids=["p1152-box8", "p1152-box132", "p4224-wide"])
 def test_segments_cuda_match_twin_above_1024(cuda, p, box0):
-    """P = 1152 (refused before as above 1024): both segment kernels
-    stream K⁻¹ with two coordinates a thread and agree with the twin; so
-    does the wide variant at P = 4224 (five coordinates a thread, their
-    state in device memory; two scenarios, each with its own part of the
-    scratch)."""
-    plan = kernels.segment_plan(1, p)
-    assert (plan["variant"], plan["threads"]) == (
-        ("streamed", 576) if p == 1152 else ("wide", 864))
+    """P = 1152 (refused before as above 1024) and P = 4224: both segment
+    kernels spread a scenario's columns over the card, a launch an
+    iteration, and agree with the twin (two scenarios at P = 4224, each
+    with its own half of the scratch)."""
+    plan = kernels.segment_plan(1, p, 5)
+    assert (plan["route"], plan["threads"], plan["kernels"]) == (
+        "spread", kernels.SEGMENT_SPREAD_THREADS, 5)
     raw = (_segment_inputs(17, 1, nu=1140, box0=box0, p=p) if box0
            else _wide_inputs(17, 2, p))
     ins = {k: torch.as_tensor(v) for k, v in raw.items()}
@@ -234,6 +233,73 @@ def test_segments_cuda_match_twin_above_1024(cuda, p, box0):
     for g, s, r in zip(got, grouped, ref):
         assert torch.equal(g, s)
         np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+def _segment_inputs_card(seed, batch, nu, box0, p, dev):
+    """``_segment_inputs``' layout with H = MMᵀ/nU + I and K⁻¹ made on the
+    card in float64 (at P = 1152 and batch 256 the host's inverse takes
+    minutes): a proper inverse, so the iterates stay O(1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev,  # noqa: E731
+                                 dtype=torch.float64)
+    nb = nu - box0
+    M = rnd(batch, nu, nu)
+    H = M @ M.mT / nu + torch.eye(nu, dtype=M.dtype, device=dev)
+    rho = rnd(batch, nb).abs() + 0.1
+    rho_full = torch.zeros(batch, nu, dtype=M.dtype, device=dev)
+    rho_full[:, box0:] = rho
+    Ki = torch.linalg.inv(H + SIGMA * torch.eye(nu, dtype=M.dtype, device=dev)
+                          + torch.diag_embed(rho_full))
+    Ki = torch.nn.functional.pad(0.5 * (Ki + Ki.mT), (0, p - nu, 0, p - nu))
+
+    def full(v, fill=0.0):
+        out = torch.full((batch, p), fill, dtype=M.dtype, device=dev)
+        out[:, nu:] = 0.0
+        out[:, box0:nu] = v
+        return out
+
+    q = torch.nn.functional.pad(rnd(batch, nu), (0, p - nu))
+    x = torch.nn.functional.pad(rnd(batch, nu), (0, p - nu))
+    ins = [Ki, q, full(-rnd(batch, nb).abs(), -BIG),
+           full(rnd(batch, nb).abs(), BIG), full(rho), full(1.0 / rho), x,
+           full(rnd(batch, nb)), full(rnd(batch, nb))]
+    return [v.float().contiguous() for v in ins]
+
+
+# every cluster size and place of K⁻¹ the cluster route takes at P = 256,
+# P = 384 and 640 in shared memory, and the spread route's strip widths,
+# forced
+SEGMENT_FORCED = (
+    [(P2, dict(cluster=c, kinv_in_registers=r)) for c in (2, 4, 8)
+     for r in (False, True)]
+    + [(384, dict(cluster=4)), (384, dict(cluster=8)), (640, {})]
+    + [(1152, dict(cluster=0, spread_cols=w))
+       for w in kernels.SEGMENT_SPREAD_WIDTHS]
+    + [(P2, dict(cluster=0))])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 64, 256])
+@pytest.mark.parametrize("p,force", SEGMENT_FORCED,
+                         ids=[f"p{p}-" + "-".join(f"{k}{int(v)}" for k, v in
+                                                  f.items())
+                              for p, f in SEGMENT_FORCED])
+def test_segment_routes_cuda_match_twin(cuda, p, force, batch):
+    """Every route and cluster size through both wrappers' launchers at
+    B = 1, 64 and 256 against the twin (1e-4; the twin on the card), the
+    two wrappers alike."""
+    on_card = _segment_inputs_card(19, batch, p - 16, p - 150, p, cuda)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, length=5)
+    ref = kernels.admm_segment_plain(*on_card, **kw)
+    plan = kernels.segment_plan(batch, p, 5, **force)
+    got = kernels._segment_launch("admm_segment", on_card, plan, **kw)
+    grouped = kernels._segment_launch("admm_segment_grouped", on_card, plan,
+                                      group=batch, **kw)
+    torch.cuda.synchronize()
+    for g, s, r in zip(got, grouped, ref):
+        assert torch.equal(g, s)
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
                                    atol=1e-4)
 
 
@@ -283,12 +349,12 @@ def test_woodbury_ns_cuda_matches_twin(cuda, nu, box0, n_ns):
 @pytest.mark.parametrize("batch", [1, 64, 256])
 @pytest.mark.parametrize("p,nu,box0,variant",
                          [(P, 120, 96, "registers"),
-                          (P2, NU2, BOX02, "streamed")])
+                          (P2, NU2, BOX02, "cluster")])
 def test_admm_segment_variants_cuda_match_twin(cuda, p, nu, box0, variant,
                                                batch):
-    """K⁻¹ in registers at the stock size, re-read through L2 at twice the
-    stock horizon (P = 256)."""
-    assert kernels.segment_plan(batch, p)["variant"] == variant
+    """K⁻¹ in registers at the stock size, in the strips of a cluster at
+    twice the stock horizon (P = 256)."""
+    assert kernels.segment_plan(batch, p)["route"] == variant
     ins = {k: torch.as_tensor(v) for k, v in
            _segment_inputs(2, batch, nu=nu, box0=box0, p=p).items()}
     kw = dict(sigma=SIGMA, alpha=ALPHA, length=5)

@@ -66,7 +66,7 @@ def test_long_horizon_sizes(long_horizon):
     p = kernels._pad_to(nu)
     assert p == 256
     assert kernels.woodbury_plan(1, p, nb, 1)["route"] == "general"
-    assert kernels.segment_plan(1, p)["variant"] == "streamed"
+    assert kernels.segment_plan(1, p)["route"] == "cluster"
 
 
 def test_tick_long_horizon_joint_limits_matches_jax(long_horizon):

@@ -124,7 +124,7 @@ def test_port_never_imports_jax():
         "'profile_solve_parts_torch', 'bench_ns_skip_torch', "
         "'bench_joint_limits_latency_torch', 'debug_qp_torch', "
         "'record_flight_snapshots_torch', 'make_calibrated_urdf_torch', "
-        "'bench_woodbury_general_torch'):\n"
+        "'bench_woodbury_general_torch', 'bench_segment_streamed_torch'):\n"
         "    runpy.run_path(f'tools/{tool}.py', run_name='not_main')\n"
         "sys.path.insert(0, 'tests')\n"
         "runpy.run_path('tests/oracle_replay.py', run_name='not_main')\n"

@@ -32,6 +32,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 import bench_joint_limits_latency_torch  # noqa: E402
 import bench_woodbury_general_torch  # noqa: E402
 import bench_ns_skip_torch  # noqa: E402
+import bench_segment_streamed_torch  # noqa: E402
 import debug_qp_torch  # noqa: E402
 import fly_full_trajectory_torch  # noqa: E402
 import make_calibrated_urdf_torch  # noqa: E402
@@ -138,6 +139,25 @@ def test_bench_woodbury_general_dry_run_prints_the_plans(tmp_path, capsys):
         dict(device="cpu", ok=True)
 
 
+def test_bench_segment_streamed_dry_run_prints_the_plans(tmp_path, capsys):
+    """On the CPU the segment routes' bench times the twin and records the
+    plan it would launch on the card: the long horizon's P = 256 on a
+    cluster of 8, K⁻¹'s strip in registers, one kernel a call."""
+    out = tmp_path / "bench.json"
+    assert bench_segment_streamed_torch.main(["--out", str(out)] + CPU) == 0
+    record = json.loads(out.read_text())
+    assert record["device"] == "cpu" and record["ok"]
+    (rec,) = record["records"]
+    assert (rec["P"], rec["batch"], rec["length"]) == (256, 2, 5)
+    assert rec["plan"] == dict(route="cluster", cluster=8,
+                               kinv_in_registers=True, spread_cols=0,
+                               blocks=16, threads=128, smem_bytes=2048,
+                               kernels=1)
+    assert rec["plain_ms"] > 0 and "choices" not in rec
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == \
+        dict(device="cpu", ok=True)
+
+
 def test_make_calibrated_urdf_is_byte_identical(tmp_path):
     out = tmp_path / "mk3.urdf"
     make_calibrated_urdf_torch.main(["--out", str(out)])
@@ -206,6 +226,8 @@ WRITERS = {
     "record_flight_snapshots": (record_flight_snapshots_torch,
                                 lambda p: ["1", "2", p] + CPU),
     "bench_woodbury_general": (bench_woodbury_general_torch,
+                               lambda p: ["--out", p] + CPU),
+    "bench_segment_streamed": (bench_segment_streamed_torch,
                                lambda p: ["--out", p] + CPU),
 }
 COMMITTED = ["FLIGHT_r05.json", "SWEEP_r05.json", "MISMATCH_r05.json",
