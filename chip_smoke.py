@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the multi-rate MPC on one CUDA card: the
-condensed tick on the recorded stream, the segment head-to-head, the
-full-space solver with debug-log mode and the condense modes, the parallel
-axes (pipelined tick, row-sharded solve, multi-process dry run), the host
-side (native runtime, real-time driver, telemetry, host MuJoCo), the
-recorded streams against the float64 oracle and the tools, the closed-loop
-flight and the Monte-Carlo sweep.
+condensed tick on the recorded stream, the port's bench, the segment
+head-to-head, the full-space solver with debug-log mode and the condense
+modes, the parallel axes (pipelined tick, row-sharded solve, multi-process
+dry run), the host side (native runtime, real-time driver, telemetry, host
+MuJoCo), the recorded streams against the float64 oracle and the tools,
+the closed-loop flight and the Monte-Carlo sweep.
 
     python3 chip_smoke.py
 
@@ -55,6 +55,14 @@ Phases (any failure exits non-zero):
              (per-lane decisions), kernel_mode="auto"; every lane must
              solve, and the first 20 ticks must agree with the port's own
              CPU run (the plain twins) on the same inputs.
+4b. bench    the port's bench (bench_torch.main, in-process) at
+             BENCH_SCAN=40 and its other knobs' defaults: batch 256 chained
+             over 40 recorded ticks three times, the per-dispatch loop,
+             five batch-1 chains and the host round trips; its JSON line
+             holds bench.py's keys and ``device``, every lane-tick solved,
+             both kernels launched on both of its paths (their launches
+             count in the kernels line). Printed as a ``[bench]`` line; its
+             ~20-40 s come out of the batch-64 flight slice.
 5. long_horizon  the recorded stream under MPCConfig(control_horizon=13,
              use_joint_position_constraint=True): nU = 132 pads to P = 256
              with the box over all 132 inputs, so the refresh takes
@@ -187,6 +195,14 @@ BENCH = dict(max_iter=40, polish=True, rho_update_iters=(15,),
              kinv_guard=True, ns_skip_tol=0.02, term_check_every=5,
              kernel_mode="auto")
 N_TICKS, N_CHECK, BATCH = 40, 20, 256
+# the bench phase: bench_torch.main at 40 chained ticks, its other knobs at
+# their defaults; its line's keys are bench.py's (bench.py:232-243) and
+# then "device"
+BENCH_ENV = dict(BENCH_BATCH="256", BENCH_ITERS="10", BENCH_SCAN="40",
+                 BENCH_EPS="1e-3", BENCH_STATIC="0", BENCH_MESH="0")
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "single_solve_p50_ms",
+              "deadline_ms", "solved_frac", "per_dispatch_solves_per_s",
+              "regime", "device"]
 # a long horizon with joint limits: nU = 8·13 + 4·7 = 132 -> P = 256, n_box 132
 LONG_HORIZON = dict(control_horizon=13, use_joint_position_constraint=True)
 LH_TICKS, LH_CHECK, LH_BATCH, LH_PROFILED = 10, 5, 64, 5
@@ -882,6 +898,56 @@ def phase_main(K, dev, record):
               f"{prof['device_kernels_per_tick']:.1f} device kernels/tick")
     record["main"] = out
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the port's bench
+# ---------------------------------------------------------------------------
+
+
+def phase_bench(record):
+    """bench_torch.main in-process at BENCH_ENV: one JSON line with
+    bench.py's keys and ``device``, every lane-tick solved, both kernels
+    launched on both paths (the bench zeroes the counts before each path's
+    timed chains and reads them after). Returns the two paths' launches."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import bench_torch
+
+    t0 = time.perf_counter()
+    stdout = io.StringIO()
+    with mock.patch.dict(os.environ, BENCH_ENV), \
+            contextlib.redirect_stdout(stdout):
+        line, detail = bench_torch.main([])
+    phase_s = time.perf_counter() - t0
+    printed = [json.loads(x) for x in stdout.getvalue().splitlines()
+               if x.startswith("{")]
+    check(printed == [line], f"bench: printed {stdout.getvalue()!r}")
+    check(list(line) == BENCH_KEYS, f"bench: keys {list(line)}")
+    check(line["solved_frac"] == 1.0
+          and detail["latency"]["solved_frac"] == 1.0,
+          f"bench: solved fraction {line['solved_frac']} / "
+          f"{detail['latency']['solved_frac']} < 1.0")
+    for k, v in line.items():
+        if isinstance(v, float):
+            check(np.isfinite(v) and v > 0, f"bench: {k} = {v}")
+    paths = {name: dict(launches=detail[name]["launches"])
+             for name in ("throughput", "latency")}
+    for name, path in paths.items():
+        for k, n in path["launches"].items():
+            check(n > 0, f"bench: {k} was never launched on the {name} path")
+    print(f"[bench] {json.dumps(line)}")
+    print(f"[bench] the phase took {phase_s:.1f} s; launches "
+          f"{paths['throughput']['launches']} (batch 256, 3 x "
+          f"{BENCH_ENV['BENCH_SCAN']} ticks) / {paths['latency']['launches']} "
+          f"(batch 1, 5 x {BENCH_ENV['BENCH_SCAN']}); host read-backs a tick "
+          f"{detail['throughput']['syncs_per_tick']:.2f} / "
+          f"{detail['latency']['syncs_per_tick']:.2f}; host round trip p50 "
+          f"{detail['latency']['round_trip_p50_ms']:.3f} ms")
+    record["bench"] = dict(line=line, detail=detail, phase_s=phase_s)
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -2202,6 +2268,10 @@ def phase_flight(K, dev, record):
               - FID_BUDGET_S - sweep_reserve_s(probe_ms))
     full = int(round(FLIGHT_SLICE_S / period))
     n_ticks = max(200, min(full, int(1e3 * left_s / (1.1 * probe_ms))))
+    bench_s = record["bench"]["phase_s"]
+    print(f"[flight] the bench phase's {bench_s:.1f} s are "
+          f"~{int(1e3 * bench_s / (1.1 * probe_ms))} ticks of this slice at "
+          f"the probe's {probe_ms:.3f} ms a tick")
     K.reset_launches()
     condensed.batch_any.syncs = 0
     t0 = time.perf_counter()
@@ -2779,6 +2849,7 @@ def main():
     rows = phase_kernels(K, dev, record)
     seg = phase_segments(K, record)
     main_runs = phase_main(K, dev, record)
+    bench = phase_bench(record)
     long_runs = phase_long_horizon(K, dev, record)
     full_space = phase_full_space(K, dev, record)
     parallel = phase_parallel(K, dev, record)
@@ -2802,7 +2873,8 @@ def main():
         "admm_segment": "ironcub_mpc_tpu/ops/pallas_solve.py:108",
         "admm_segment_grouped": "ironcub_mpc_tpu/ops/pallas_solve.py:163",
         "woodbury_ns": "ironcub_mpc_tpu/ops/pallas_solve.py:276"}
-    paths = [seg] + list(main_runs.values()) + list(long_runs.values()) \
+    paths = [seg] + list(main_runs.values()) + list(bench.values()) \
+        + list(long_runs.values()) \
         + [v for v in full_space.values()
            if isinstance(v, dict) and "launches" in v] \
         + [parallel["pipeline"], host["driver"]] + fid["paths"] \

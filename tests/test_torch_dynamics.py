@@ -14,10 +14,19 @@ links with batched matmuls), so an entry that is small by cancellation of
 terms of the field's size carries a rounding error of the field's size times
 float32 epsilon.
 
-The recorded flight stream (tests/golden/flight_snapshots.npz) carries
-snapshots only, not the plant state they were computed from, so
-``compute_snapshot`` cannot be replayed from it; the closed-loop test
-(tests/test_torch_loop.py) covers snapshots of a flown state instead.
+``compute_snapshot`` is also held on flown states: the golden streams
+(tests/golden/flight_snapshots*.npz) carry snapshots only, so
+tests/torch_fixtures/plant_states_takeoff.npz (written by
+``tools/record_flight_snapshots_torch.py 3880 200 ... --plant-states
+--device cpu``) carries, for 201 ticks across lift-off (t = 19.40 s to
+20.40 s of the mission: the soles' normal force falls through the 5 N
+ground threshold at 19.52 s and each sole's force reaches zero at 20.17
+and 20.29 s), both the snapshots the port's closed loop computed and the
+exact inputs it computed them from (base pose, measured base velocity,
+joints, applied thrust, sole wrenches). Both packages
+recompute the snapshots from those inputs, JAX under ``jax.vmap`` and the
+port batched over the ticks, and each is held to the other and to the
+recording at the tolerance above.
 """
 
 import ast
@@ -316,6 +325,79 @@ def test_compute_snapshot_matches_field_by_field(states, with_wrenches):
             assert got is None, name
         else:
             _close(got.numpy(), want, f"snapshot.{name}")
+
+
+# ---------------------------------------------------------------------------
+# compute_snapshot on a recorded takeoff
+# ---------------------------------------------------------------------------
+
+TAKEOFF = ROOT / "tests" / "torch_fixtures" / "plant_states_takeoff.npz"
+STATE_KEYS = ("base_R", "base_p", "base_vel", "q", "qd", "thrust",
+              "sole_wrenches")
+
+
+@pytest.fixture(scope="module")
+def takeoff():
+    """The recorded snapshots, and both packages' compute_snapshot of the
+    recorded inputs (JAX under one jitted vmap, the port batched)."""
+    npz = np.load(TAKEOFF)
+    st = [npz[f"state_{k}"] for k in STATE_KEYS]
+    frames = tuple(str(f) for f in npz["meta_sole_frames"])
+    threshold = float(npz["meta_ground_threshold"][0])
+    jkd = jdyn.KinDyn(jdyn.load_ironcub_model())
+
+    def one(base_R, base_p, base_vel, q, qd, thrust, wrenches):
+        return jdyn.compute_snapshot(
+            jkd, JETS, base_R, base_p, base_vel, q, qd, thrust,
+            ext_wrench_frames=frames, ext_wrenches_body=wrenches,
+            ground_threshold=threshold)
+
+    jax_snap = jax.jit(jax.vmap(one))(*(jnp.asarray(a) for a in st))
+    tkd = tdyn.KinDyn(tdyn.load_ironcub_model(), device="cpu")
+    t = [torch.as_tensor(a) for a in st]
+    port = tdyn.compute_snapshot(tkd, JETS, *t[:6], ext_wrench_frames=frames,
+                                 ext_wrenches_body=t[6],
+                                 ground_threshold=threshold)
+    recorded = {f: npz[f"snap_{f}"] for f in port._fields}
+    return dict(
+        recorded=recorded,
+        jax={f: np.asarray(getattr(jax_snap, f)) for f in port._fields},
+        port={f: getattr(port, f).numpy() for f in port._fields})
+
+
+def _same_snapshot(got, want, what):
+    for name, ref in want.items():
+        val = got[name]
+        if ref.dtype == bool or val.dtype == bool:
+            # the recorder stores the contact flag as float32 0 / 1
+            np.testing.assert_array_equal(val.astype(bool), ref.astype(bool),
+                                          err_msg=f"{what}.{name}")
+        else:
+            _close(val, ref, f"{what}.{name}")
+
+
+def test_recorded_takeoff_crosses_the_ground_threshold(takeoff):
+    """The stream leaves the ground: the contact flag (and with it the
+    ZMP branch) changes state inside it, and so does each sole's contact
+    wrench, from a load to exactly zero."""
+    on = takeoff["recorded"]["on_ground"].astype(bool)
+    assert on.shape == (201,)
+    assert on[0] and not on[-1], on
+    assert np.all(takeoff["recorded"]["zmp"][~on] == 0)
+    fz = np.load(TAKEOFF)["state_sole_wrenches"][:, :, 2]
+    assert np.all(fz[0] > 0) and np.all(fz[-1] == 0), fz[[0, -1]]
+
+
+def test_compute_snapshot_on_recorded_takeoff_port_matches_jax(takeoff):
+    _same_snapshot(takeoff["port"], takeoff["jax"], "port vs JAX")
+
+
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_compute_snapshot_on_recorded_takeoff_matches_recording(takeoff,
+                                                                side):
+    """Each package's snapshots of the recorded inputs against the
+    snapshots the port's loop recorded from the same plant states."""
+    _same_snapshot(takeoff[side], takeoff["recorded"], f"{side} vs recorded")
 
 
 def test_kindyn_defaults_to_cuda_and_refuses_silent_cpu():

@@ -94,9 +94,9 @@ def _port_modules():
 
 
 def test_port_never_imports_jax():
-    """Every module of the port, chip_smoke.py, the port's tools and
-    examples and the card-only test files import with JAX and the JAX
-    package blocked."""
+    """Every module of the port, chip_smoke.py, bench_torch.py, the port's
+    tools and examples and the card-only test files import with JAX and the
+    JAX package blocked."""
     mods = _port_modules()
     for m in ("ops.kernels", "dynamics.kinodynamics", "dynamics.wrenches",
               "dynamics.model", "dynamics.urdf", "dynamics.urdf_export",
@@ -116,6 +116,7 @@ def test_port_never_imports_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "runpy.run_path('bench_torch.py', run_name='not_main')\n"
         "for tool in ('bench_segment_kernels_torch', "
         "'run_robustness_sweep_torch', 'run_mismatch_sweep_torch', "
         "'capture_rt_torch', 'compare_plants_torch', 'common_torch', "

@@ -11,7 +11,8 @@
   the JAX tool's dump of the same hover state.
 - ``record_flight_snapshots_torch.py`` writes a stream with the committed
   streams' keys, shapes and dtypes that ``runtime/replay.py`` loads and
-  whose first tick replays.
+  whose first tick replays; with ``--plant-states`` the inputs it also
+  writes give its snapshots again through ``compute_snapshot``.
 - Every tool that writes refuses a committed record, ``tests/golden/`` and
   ``data/``.
 """
@@ -215,6 +216,33 @@ def test_recorded_stream_round_trips_through_replay(tmp_path):
                             problem, carry, *replay.tick_inputs(0))
     assert int(o.status[0]) in (admm.SOLVED, admm.SOLVED_INACCURATE)
     assert bool(torch.isfinite(o.throttle).all())
+
+
+def test_recorder_plant_states_recompute_its_snapshots(tmp_path):
+    """With --plant-states the recorder also writes the inputs of every
+    snapshot; compute_snapshot of them gives the recorded snapshots."""
+    from ironcub_mpc_tpu_torch import dynamics as tdyn
+    from ironcub_mpc_tpu_torch.core.config import RobotConfig
+
+    out = tmp_path / "states.npz"
+    record_flight_snapshots_torch.main(["1", "2", str(out), "--plant-states"]
+                                       + CPU)
+    got = np.load(out)
+    keys = ("base_R", "base_p", "base_vel", "q", "qd", "thrust",
+            "sole_wrenches")
+    t = [torch.as_tensor(got[f"state_{k}"]) for k in keys]
+    assert all(a.shape[0] == 3 for a in t)
+    kd = tdyn.KinDyn(tdyn.load_ironcub_model(), device="cpu")
+    snap = tdyn.compute_snapshot(
+        kd, RobotConfig().jets_list, *t[:6],
+        ext_wrench_frames=tuple(str(f) for f in got["meta_sole_frames"]),
+        ext_wrenches_body=t[6],
+        ground_threshold=float(got["meta_ground_threshold"][0]))
+    for f in snap._fields:
+        want = got[f"snap_{f}"]
+        np.testing.assert_allclose(
+            getattr(snap, f).numpy().astype(np.float32), want, rtol=1e-5,
+            atol=1e-6 * max(float(np.abs(want).max()), 1.0), err_msg=f)
 
 
 WRITERS = {

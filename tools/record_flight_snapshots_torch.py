@@ -15,8 +15,20 @@ alphaGravity windows at the recording handoff, in the layout of
   ch_<name>        [45, 3]     reference-trajectory windows from the cursor
   meta_start_tick, meta_thrust_range
 
+With ``--plant-states`` it also writes, for every recorded snapshot, the
+exact inputs ``runtime/loop.py``'s ``ClosedLoop.snapshot`` hands to
+``dynamics.compute_snapshot`` (so the snapshot can be recomputed from them):
+
+  state_base_R [n+1, 3, 3], state_base_p [n+1, 3]   base pose, world
+  state_base_vel [n+1, 6]       measured base velocity (linear, angular)
+  state_q, state_qd [n+1, 23]   joint positions and velocities
+  state_thrust [n+1, 4]         the plant's applied thrust
+  state_sole_wrenches [n+1, 2, 6]  the soles' contact wrenches
+  meta_sole_frames, meta_ground_threshold
+
 Usage: python tools/record_flight_snapshots_torch.py [start_tick=2700]
-           [n=120] [out=flight_snapshots_torch.npz] [--device cuda]
+           [n=120] [out=flight_snapshots_torch.npz] [--plant-states]
+           [--device cuda]
 
 Runs on ``cuda`` unless ``--device`` says otherwise. Writes ``out`` (a path;
 a new file by default) and never into ``tests/golden/``, whose streams the
@@ -37,12 +49,25 @@ from common_torch import option, positional, writable  # noqa: E402
 DEFAULT_OUT = "flight_snapshots_torch.npz"
 
 
+def snapshot_inputs(loop, s) -> dict:
+    """The tensors ``loop.snapshot(s)`` passes to ``compute_snapshot``
+    (runtime/loop.py), by name."""
+    import torch
+
+    lin, ang, s = loop.plant.measured_base_velocity(s)
+    return dict(base_R=s.base_R, base_p=s.base_p,
+                base_vel=torch.cat([lin, ang], dim=-1), q=s.q, qd=s.qd,
+                thrust=loop.plant.applied_thrust(s),
+                sole_wrenches=loop.plant.sole_wrenches(s))
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     pos = positional(argv, valued=("device",))
     start_tick = int(pos[0]) if pos else 2700
     n = int(pos[1]) if len(pos) > 1 else 120
     dest = writable(pos[2] if len(pos) > 2 else DEFAULT_OUT)
+    plant_states = "--plant-states" in argv
 
     from ironcub_mpc_tpu_torch.ops import admm
     from ironcub_mpc_tpu_torch.runtime import flight
@@ -73,10 +98,13 @@ def main(argv=None):
     throttle0 = lane0(carry.plant.throttle)
     alpha_idx = int(carry.mpc.alpha_traj_idx[0])
     pos_idx = int(carry.mpc.pos_traj_idx[0])
-    snaps, est_tds = [], []
+    snaps, est_tds, states = [], [], []
     for k in range(n + 1):
         snap, _ = loop.snapshot(carry.plant)
         snaps.append({f: lane0(getattr(snap, f)) for f in snap._fields})
+        if plant_states:
+            states.append({k: lane0(v) for k, v in
+                           snapshot_inputs(loop, carry.plant).items()})
         if k < n:
             est_tds.append(lane0(carry.plant.ekf.x[..., 1]))
             carry = tick(carry, start_tick + k)
@@ -88,6 +116,14 @@ def main(argv=None):
                               np.float32)
     for name, arr in channels.items():
         out[f"ch_{name}"] = np.asarray(arr[pos_idx:pos_idx + 45], np.float32)
+    if plant_states:
+        from ironcub_mpc_tpu_torch.sim.plant import SOLE_FRAMES
+
+        for k in states[0]:
+            out[f"state_{k}"] = np.stack([st[k] for st in states])
+        out["meta_sole_frames"] = np.asarray(SOLE_FRAMES)
+        out["meta_ground_threshold"] = np.asarray(
+            [loop.robot_cfg.threshold_normal_force_on_ground], np.float32)
     out["meta_start_tick"] = np.asarray([start_tick])
     out["meta_thrust_range"] = np.asarray(
         [out["snap_jet_thrusts"].min(), out["snap_jet_thrusts"].max()])
