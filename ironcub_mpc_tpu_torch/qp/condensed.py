@@ -33,6 +33,7 @@ from ..horizon.schedule import HorizonSchedule
 from ..ops import admm
 from ..ops import jet_model as jm
 from ..ops import kernels
+from ..utils.profiling import span
 from .blocks import LinearizedDynamics
 
 
@@ -491,7 +492,14 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
     """Box-constrained ADMM with selector structure + Schur polish, per
     lane. With ``kinv_prev``/``rho_prev`` and a frozen ``scaling`` the
     carried (K(ρ))⁻¹ is refreshed by a rank-n_box Woodbury update plus
-    Newton–Schulz instead of a fresh Cholesky."""
+    Newton–Schulz instead of a fresh Cholesky.
+
+    While a profiler records, its stages are the spans ``solve.scale``,
+    ``solve.refresh``, ``solve.iterate``, ``solve.polish`` and
+    ``solve.status``. Two host counters: ``solve.iterations`` adds the ADMM
+    iterations each segment call launches for the batch, and
+    ``solve.refresh_skips`` the solves whose batch-wide refresh carried
+    K⁻¹ untouched (every lane's probe inside ``ns_skip_tol``)."""
     B, nU = qp.H.shape[0], qp.H.shape[-1]
     nb = qp.lb.shape[-1]
     box0 = nU - nb
@@ -499,30 +507,9 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
     s = settings
     bg = s.batch_guard
 
-    if scaling is None:
-        H, q, scaling = equilibrate(qp.H, qp.q, box0, s.scaling_iters)
-        D, c_s = scaling.D, scaling.c
-    else:
-        D = scaling.D.expand(B, nU)
-        c_s = scaling.c.reshape(-1).expand(B)
-        H = c_s[:, None, None] * (D[:, :, None] * qp.H * D[:, None, :])
-        q = c_s[:, None] * (D * qp.q)
-    E = 1.0 / D[:, box0:]
-    lb, ub = E * qp.lb, E * qp.ub
-
-    eq = (ub - lb) < s.eq_tol
-    rho_default = torch.full((B,), s.rho, dtype=dt_, device=dev)
-    rho_scalar0 = rho_default if rho_scalar_prev is None else rho_scalar_prev
-    # a non-solved tick may carry non-finite solver state; never let it
-    # poison the next tick
-    rho_scalar0 = torch.where(torch.isfinite(rho_scalar0) & (rho_scalar0 > 0),
-                              rho_scalar0, rho_default)
-
     def rho_pattern(rho_scalar):
         return torch.where(eq, rho_scalar[:, None] * s.rho_eq_scale,
                            rho_scalar[:, None])
-
-    rho0 = rho_pattern(rho_scalar0)
 
     def factor(rho_vec):
         return _inverse_by_cholesky(_k_matrix(H, s.sigma, box0, rho_vec))
@@ -549,15 +536,6 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
         Knew = Kinv - Kinv[:, :, box0:] @ X
         return ns_polish(Knew, rho_new, n_ns)
 
-    x = (torch.zeros((B, nU), dtype=dt_, device=dev) if warm_u is None
-         else warm_u / D)
-    y = (torch.zeros((B, nb), dtype=dt_, device=dev) if warm_y is None
-         else warm_y * c_s[:, None] / E)
-    # warm starts come from the previous tick even when it did not solve
-    x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-    y = torch.where(torch.isfinite(y), y, torch.zeros_like(y))
-    z = torch.clamp(x[:, box0:], lb, ub)
-
     def run_segment(Kinv, rho_vec, x, z, y, length):
         for _ in range(length):
             rhs = s.sigma * x - q
@@ -573,48 +551,6 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
             x, z = x_n, z_n
         return x, z, y
 
-    # --- hand-written kernels on the padded full layout (ops/kernels) ----
-    if admm.kernels_enabled(s):
-        P = kernels._pad_to(nU)
-
-        def lift(A):                           # [B, nU, nU] -> [B, P, P]
-            return F_.pad(A, (0, P - nU, 0, P - nU))
-
-        def lower(Ap):
-            return Ap[:, :nU, :nU]
-
-        def pv_box(vb, fill=0.0):              # box layout -> [B, P]
-            out = torch.full((B, P), fill, dtype=dt_, device=dev)
-            out[:, box0:nU] = vb
-            return out
-
-        H_p = lift(H).contiguous()
-        q_f = F_.pad(q, (0, P - nU)).contiguous()
-        lb_f = pv_box(lb, -s.inf_bound)
-        lb_f[:, nU:] = 0.0
-        ub_f = pv_box(ub, s.inf_bound)
-        ub_f[:, nU:] = 0.0
-
-        def woodbury_k(Kinv_p, rho_old, rho_new, n_ns=s.ns_steps):
-            return kernels.woodbury_ns(
-                Kinv_p.contiguous(), H_p, pv_box(rho_new - rho_old),
-                pv_box(rho_new), box0=box0, n_box=nb, sigma=s.sigma,
-                n_ns=n_ns)
-
-        def run_segment_k(Kinv_p, rho_vec, x, z, y, length):
-            xf, zf, yf = kernels.admm_segment(
-                Kinv_p.contiguous(), q_f, lb_f, ub_f, pv_box(rho_vec),
-                pv_box(1.0 / rho_vec), F_.pad(x, (0, P - nU)).contiguous(),
-                pv_box(z), pv_box(y), sigma=s.sigma, alpha=s.alpha,
-                length=length)
-            return xf[:, :nU], zf[:, box0:nU], yf[:, box0:nU]
-    else:
-        def lift(A):
-            return A
-
-        lower = lift
-        woodbury_k, run_segment_k = woodbury, run_segment
-
     def residuals(x, z, y):
         pri = ((x[:, box0:] - z) / E).abs().amax(dim=-1)
         Hx = _mv(H, x)
@@ -625,14 +561,6 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
                               (z / E).abs().amax(dim=-1))
         dua_s = (Hx / D).abs().amax(dim=-1) / c_s
         return pri, dua, pri_s, dua_s
-
-    # three fixed probes; the third is supported on the box coordinates only
-    probes = torch.zeros((nU, 3), dtype=dt_, device=dev)
-    probes[:, 0] = 1.0
-    probes[1::2, 0] = -1.0
-    probes[:, 1] = torch.linspace(-1.0, 1.0, nU, dtype=dt_, device=dev)
-    probes[box0:, 2] = 1.0
-    probes[box0 + 1::2, 2] = -1.0
 
     def kinv_probe_resid(Kinv_l, rho_v):
         """max over the probes v of ‖K(ρ)·(K⁻¹ v) − v‖∞, a lower bound on
@@ -648,66 +576,15 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
         """Per-lane select between two batched tensors."""
         return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
-    marks = [i for i in s.rho_update_iters if i < s.max_iter]
-    bounds = [0] + marks + [s.max_iter]
-    rho_scalar = rho_scalar0
-    rho_vec = rho0
-    guard_fired = torch.zeros((B,), dtype=torch.bool, device=dev)
-    if kinv_prev is None:
-        Kinv = lift(factor(rho_vec))
-    else:
-        # refresh the carried inverse: exact rank-n_box correction for the
-        # ρ pattern change and Newton–Schulz against the current H
-        kp = torch.where(torch.isfinite(kinv_prev), kinv_prev,
-                         torch.zeros_like(kinv_prev))
-        rp = torch.where(torch.isfinite(rho_prev) & (rho_prev > 0),
-                         rho_prev, rho_vec)
-
-        def with_resid(k_p):
-            if s.kinv_guard:
-                return k_p, kinv_probe_resid(lower(k_p), rho_vec)
-            return k_p, torch.zeros((B,), dtype=dt_, device=dev)
-
-        resid = None
-        if not bg:
-            if s.ns_skip_tol > 0:
-                r0 = kinv_probe_resid(kp, rho_vec)
-                stale = ~torch.isfinite(r0) | (r0 > s.ns_skip_tol)
-                k_w, r_w = with_resid(woodbury_k(lift(kp), rp, rho_vec))
-                Kinv = pick(stale, k_w, lift(kp))
-                resid = torch.where(stale, r_w, r0)
-            else:
-                Kinv = woodbury_k(lift(kp), rp, rho_vec)
-        else:
-            # batch-wide: the rank-n_box correction runs for every lane
-            # when any lane's ρ moved; otherwise the drift-absorbing NS
-            # polish runs unless every lane's probe is inside ns_skip_tol
-            if batch_any((rho_vec - rp).abs() > 0):
-                Kinv, resid = with_resid(woodbury_k(lift(kp), rp, rho_vec))
-            elif s.ns_skip_tol > 0:
-                r0 = kinv_probe_resid(kp, rho_vec)
-                if batch_any(~torch.isfinite(r0) | (r0 > s.ns_skip_tol)):
-                    Kinv, resid = with_resid(
-                        lift(ns_polish(kp, rho_vec, s.ns_steps)))
-                else:
-                    Kinv, resid = lift(kp), r0
-            else:
-                Kinv, resid = with_resid(
-                    lift(ns_polish(kp, rho_vec, s.ns_steps)))
-        if s.kinv_guard:
-            # Newton–Schulz only contracts from ‖I − K·X‖ < 1: re-factorise
-            # a lane whose refreshed inverse fails the probe
-            if resid is None:
-                resid = kinv_probe_resid(lower(Kinv), rho_vec)
-            bad = ~torch.isfinite(resid) | (resid > 0.1)
-            guard_fired = bad
-            if not bg or batch_any(bad):
-                Kinv = pick(bad, lift(factor(rho_vec)), Kinv)
-
     def converged(x, z, y):
         pri, dua, pri_s, dua_s = residuals(x, z, y)
         return ((pri <= s.eps_abs + s.eps_rel * pri_s)
                 & (dua <= s.eps_abs + s.eps_rel * dua_s))
+
+    def segment(Kinv, rho_vec, x, z, y, length):
+        """``length`` ADMM iterations for every lane, counted as launched."""
+        solve.iterations += length
+        return run_segment_k(Kinv, rho_vec, x, z, y, length)
 
     def run_segment_early(Kinv, rho_vec, x, z, y, length, global_pos):
         """term_check_every-chunked segment; a chunk is skipped once every
@@ -715,103 +592,260 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
         chunk of the solve always runs."""
         ce = s.term_check_every
         if ce <= 0:
-            return run_segment_k(Kinv, rho_vec, x, z, y, length)
+            return segment(Kinv, rho_vec, x, z, y, length)
         pos = 0
         while pos < length:
             n = min(ce, length - pos)
             if global_pos + pos == 0:
-                x, z, y = run_segment_k(Kinv, rho_vec, x, z, y, n)
+                x, z, y = segment(Kinv, rho_vec, x, z, y, n)
             else:
                 todo = ~converged(x, z, y)
                 if bg:
                     if batch_any(todo):
-                        x, z, y = run_segment_k(Kinv, rho_vec, x, z, y, n)
+                        x, z, y = segment(Kinv, rho_vec, x, z, y, n)
                 else:
-                    xn, zn, yn = run_segment_k(Kinv, rho_vec, x, z, y, n)
+                    xn, zn, yn = segment(Kinv, rho_vec, x, z, y, n)
                     x, z, y = (pick(todo, xn, x), pick(todo, zn, z),
                                pick(todo, yn, y))
             pos += n
         return x, z, y
 
-    for si in range(len(bounds) - 1):
-        x, z, y = run_segment_early(Kinv, rho_vec, x, z, y,
-                                    bounds[si + 1] - bounds[si], bounds[si])
-        if si < len(bounds) - 2:
-            pri, dua, pri_s, dua_s = residuals(x, z, y)
-            ratio = torch.sqrt(
-                (pri / torch.clamp_min(pri_s, 1e-12))
-                / torch.clamp_min(dua / torch.clamp_min(dua_s, 1e-12), 1e-12))
-            upd = (ratio > s.adaptive_rho_tolerance) | (
-                ratio < 1.0 / s.adaptive_rho_tolerance)
-            if s.term_check_every > 0:
-                # a converged lane keeps its ρ (OSQP never re-tunes after
-                # termination)
-                done_here = ((pri <= s.eps_abs + s.eps_rel * pri_s)
-                             & (dua <= s.eps_abs + s.eps_rel * dua_s))
-                upd = upd & ~done_here
-            rho_scalar = torch.where(
-                upd, torch.clamp(rho_scalar * ratio, s.rho_min, s.rho_max),
-                rho_scalar)
-            rho_new = pick(upd, rho_pattern(rho_scalar), rho_vec)
-            if not bg or batch_any(upd):
-                Kinv = woodbury_k(Kinv, rho_vec, rho_new)
-            rho_vec = rho_new
+    with span("solve.scale"):
+        if scaling is None:
+            H, q, scaling = equilibrate(qp.H, qp.q, box0, s.scaling_iters)
+            D, c_s = scaling.D, scaling.c
+        else:
+            D = scaling.D.expand(B, nU)
+            c_s = scaling.c.reshape(-1).expand(B)
+            H = c_s[:, None, None] * (D[:, :, None] * qp.H * D[:, None, :])
+            q = c_s[:, None] * (D * qp.q)
+        E = 1.0 / D[:, box0:]
+        lb, ub = E * qp.lb, E * qp.ub
 
-    kinv_out, rho_out, rho_scalar_out = lower(Kinv), rho_vec, rho_scalar
+        eq = (ub - lb) < s.eq_tol
+        rho_default = torch.full((B,), s.rho, dtype=dt_, device=dev)
+        rho_scalar0 = (rho_default if rho_scalar_prev is None
+                       else rho_scalar_prev)
+        # a non-solved tick may carry non-finite solver state; never let it
+        # poison the next tick
+        rho_scalar0 = torch.where(
+            torch.isfinite(rho_scalar0) & (rho_scalar0 > 0), rho_scalar0,
+            rho_default)
+        rho0 = rho_pattern(rho_scalar0)
+
+        x = (torch.zeros((B, nU), dtype=dt_, device=dev) if warm_u is None
+             else warm_u / D)
+        y = (torch.zeros((B, nb), dtype=dt_, device=dev) if warm_y is None
+             else warm_y * c_s[:, None] / E)
+        # warm starts come from the previous tick even when it did not solve
+        x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+        y = torch.where(torch.isfinite(y), y, torch.zeros_like(y))
+        z = torch.clamp(x[:, box0:], lb, ub)
+
+        # --- hand-written kernels on the padded full layout (ops/kernels) -
+        if admm.kernels_enabled(s):
+            P = kernels._pad_to(nU)
+
+            def lift(A):                       # [B, nU, nU] -> [B, P, P]
+                return F_.pad(A, (0, P - nU, 0, P - nU))
+
+            def lower(Ap):
+                return Ap[:, :nU, :nU]
+
+            def pv_box(vb, fill=0.0):          # box layout -> [B, P]
+                out = torch.full((B, P), fill, dtype=dt_, device=dev)
+                out[:, box0:nU] = vb
+                return out
+
+            H_p = lift(H).contiguous()
+            q_f = F_.pad(q, (0, P - nU)).contiguous()
+            lb_f = pv_box(lb, -s.inf_bound)
+            lb_f[:, nU:] = 0.0
+            ub_f = pv_box(ub, s.inf_bound)
+            ub_f[:, nU:] = 0.0
+
+            def woodbury_k(Kinv_p, rho_old, rho_new, n_ns=s.ns_steps):
+                return kernels.woodbury_ns(
+                    Kinv_p.contiguous(), H_p, pv_box(rho_new - rho_old),
+                    pv_box(rho_new), box0=box0, n_box=nb, sigma=s.sigma,
+                    n_ns=n_ns)
+
+            def run_segment_k(Kinv_p, rho_vec, x, z, y, length):
+                xf, zf, yf = kernels.admm_segment(
+                    Kinv_p.contiguous(), q_f, lb_f, ub_f, pv_box(rho_vec),
+                    pv_box(1.0 / rho_vec),
+                    F_.pad(x, (0, P - nU)).contiguous(), pv_box(z),
+                    pv_box(y), sigma=s.sigma, alpha=s.alpha, length=length)
+                return xf[:, :nU], zf[:, box0:nU], yf[:, box0:nU]
+        else:
+            def lift(A):
+                return A
+
+            lower = lift
+            woodbury_k, run_segment_k = woodbury, run_segment
+
+    with span("solve.refresh"):
+        # three fixed probes; the third is supported on the box coordinates
+        # only
+        probes = torch.zeros((nU, 3), dtype=dt_, device=dev)
+        probes[:, 0] = 1.0
+        probes[1::2, 0] = -1.0
+        probes[:, 1] = torch.linspace(-1.0, 1.0, nU, dtype=dt_, device=dev)
+        probes[box0:, 2] = 1.0
+        probes[box0 + 1::2, 2] = -1.0
+
+        rho_scalar = rho_scalar0
+        rho_vec = rho0
+        guard_fired = torch.zeros((B,), dtype=torch.bool, device=dev)
+        if kinv_prev is None:
+            Kinv = lift(factor(rho_vec))
+        else:
+            # refresh the carried inverse: exact rank-n_box correction for
+            # the ρ pattern change and Newton–Schulz against the current H
+            kp = torch.where(torch.isfinite(kinv_prev), kinv_prev,
+                             torch.zeros_like(kinv_prev))
+            rp = torch.where(torch.isfinite(rho_prev) & (rho_prev > 0),
+                             rho_prev, rho_vec)
+
+            def with_resid(k_p):
+                if s.kinv_guard:
+                    return k_p, kinv_probe_resid(lower(k_p), rho_vec)
+                return k_p, torch.zeros((B,), dtype=dt_, device=dev)
+
+            resid = None
+            if not bg:
+                if s.ns_skip_tol > 0:
+                    r0 = kinv_probe_resid(kp, rho_vec)
+                    stale = ~torch.isfinite(r0) | (r0 > s.ns_skip_tol)
+                    k_w, r_w = with_resid(woodbury_k(lift(kp), rp, rho_vec))
+                    Kinv = pick(stale, k_w, lift(kp))
+                    resid = torch.where(stale, r_w, r0)
+                else:
+                    Kinv = woodbury_k(lift(kp), rp, rho_vec)
+            else:
+                # batch-wide: the rank-n_box correction runs for every lane
+                # when any lane's ρ moved; otherwise the drift-absorbing NS
+                # polish runs unless every lane's probe is inside
+                # ns_skip_tol
+                if batch_any((rho_vec - rp).abs() > 0):
+                    Kinv, resid = with_resid(woodbury_k(lift(kp), rp,
+                                                        rho_vec))
+                elif s.ns_skip_tol > 0:
+                    r0 = kinv_probe_resid(kp, rho_vec)
+                    if batch_any(~torch.isfinite(r0) | (r0 > s.ns_skip_tol)):
+                        Kinv, resid = with_resid(
+                            lift(ns_polish(kp, rho_vec, s.ns_steps)))
+                    else:
+                        Kinv, resid = lift(kp), r0
+                        solve.refresh_skips += 1
+                else:
+                    Kinv, resid = with_resid(
+                        lift(ns_polish(kp, rho_vec, s.ns_steps)))
+            if s.kinv_guard:
+                # Newton–Schulz only contracts from ‖I − K·X‖ < 1:
+                # re-factorise a lane whose refreshed inverse fails the probe
+                if resid is None:
+                    resid = kinv_probe_resid(lower(Kinv), rho_vec)
+                bad = ~torch.isfinite(resid) | (resid > 0.1)
+                guard_fired = bad
+                if not bg or batch_any(bad):
+                    Kinv = pick(bad, lift(factor(rho_vec)), Kinv)
+
+    with span("solve.iterate"):
+        marks = [i for i in s.rho_update_iters if i < s.max_iter]
+        bounds = [0] + marks + [s.max_iter]
+        for si in range(len(bounds) - 1):
+            x, z, y = run_segment_early(Kinv, rho_vec, x, z, y,
+                                        bounds[si + 1] - bounds[si],
+                                        bounds[si])
+            if si < len(bounds) - 2:
+                pri, dua, pri_s, dua_s = residuals(x, z, y)
+                ratio = torch.sqrt(
+                    (pri / torch.clamp_min(pri_s, 1e-12))
+                    / torch.clamp_min(dua / torch.clamp_min(dua_s, 1e-12),
+                                      1e-12))
+                upd = (ratio > s.adaptive_rho_tolerance) | (
+                    ratio < 1.0 / s.adaptive_rho_tolerance)
+                if s.term_check_every > 0:
+                    # a converged lane keeps its ρ (OSQP never re-tunes
+                    # after termination)
+                    done_here = ((pri <= s.eps_abs + s.eps_rel * pri_s)
+                                 & (dua <= s.eps_abs + s.eps_rel * dua_s))
+                    upd = upd & ~done_here
+                rho_scalar = torch.where(
+                    upd, torch.clamp(rho_scalar * ratio, s.rho_min,
+                                     s.rho_max),
+                    rho_scalar)
+                rho_new = pick(upd, rho_pattern(rho_scalar), rho_vec)
+                if not bg or batch_any(upd):
+                    Kinv = woodbury_k(Kinv, rho_vec, rho_new)
+                rho_vec = rho_new
+
+        kinv_out, rho_out, rho_scalar_out = lower(Kinv), rho_vec, rho_scalar
 
     # --- Schur polish on the active box set -------------------------------
     if s.polish:
-        delta = s.delta_polish
-        low = (y < 0) | eq
-        up = (y > 0) | eq
-        active = (low | up).to(dt_)
-        b_act = torch.where(y < 0, lb, ub)
-        b_act = torch.where(eq, ub, b_act)
-        # (H + δI + SᵀaSa/δ) x = −q + Sᵀa b/δ
-        rhs = torch.cat([-q[:, :box0], -q[:, box0:] + active * b_act / delta],
+        with span("solve.polish"):
+            delta = s.delta_polish
+            low = (y < 0) | eq
+            up = (y > 0) | eq
+            active = (low | up).to(dt_)
+            b_act = torch.where(y < 0, lb, ub)
+            b_act = torch.where(eq, ub, b_act)
+            # (H + δI + SᵀaSa/δ) x = −q + Sᵀa b/δ
+            rhs = torch.cat([-q[:, :box0],
+                             -q[:, box0:] + active * b_act / delta], dim=-1)
+            if s.delta_polish == s.sigma:
+                # G = K + Sᵀ(active/δ − ρ)S: a Woodbury refresh of the
+                # iteration inverse
+                Ginv = lower(woodbury_k(Kinv, rho_vec, active / delta,
+                                        s.polish_ns_steps))
+
+                def g_apply(v):
+                    Gv = _mv(H, v) + delta * v
+                    return torch.cat(
+                        [Gv[:, :box0],
+                         Gv[:, box0:] + active * v[:, box0:] / delta],
                         dim=-1)
-        if s.delta_polish == s.sigma:
-            # G = K + Sᵀ(active/δ − ρ)S: a Woodbury refresh of the iteration
-            # inverse
-            Ginv = lower(woodbury_k(Kinv, rho_vec, active / delta,
-                                    s.polish_ns_steps))
 
-            def g_apply(v):
-                Gv = _mv(H, v) + delta * v
-                return torch.cat([Gv[:, :box0],
-                                  Gv[:, box0:] + active * v[:, box0:] / delta],
-                                 dim=-1)
+                x_p = _mv(Ginv, rhs)
+                for _ in range(s.polish_refine_iters):
+                    x_p = x_p + _mv(Ginv, rhs - g_apply(x_p))
+            else:
+                G = _k_matrix(H, delta, box0, active / delta)
+                cholG = torch.linalg.cholesky_ex(G)[0]
+                x_p = torch.cholesky_solve(rhs[..., None], cholG)[..., 0]
+                for _ in range(s.polish_refine_iters):
+                    r = rhs - _mv(G, x_p)
+                    x_p = x_p + torch.cholesky_solve(r[..., None],
+                                                     cholG)[..., 0]
+            y_p = torch.where(active > 0, (x_p[:, box0:] - b_act) / delta,
+                              torch.zeros_like(b_act))
+            z_p = torch.clamp(x_p[:, box0:], lb, ub)
+            p0, d0, _, _ = residuals(x, z, y)
+            p1, d1, _, _ = residuals(x_p, z_p, y_p)
+            better = (p1 + d1) < (p0 + d0)
+            x, z, y = (pick(better, x_p, x), pick(better, z_p, z),
+                       pick(better, y_p, y))
 
-            x_p = _mv(Ginv, rhs)
-            for _ in range(s.polish_refine_iters):
-                x_p = x_p + _mv(Ginv, rhs - g_apply(x_p))
-        else:
-            G = _k_matrix(H, delta, box0, active / delta)
-            cholG = torch.linalg.cholesky_ex(G)[0]
-            x_p = torch.cholesky_solve(rhs[..., None], cholG)[..., 0]
-            for _ in range(s.polish_refine_iters):
-                r = rhs - _mv(G, x_p)
-                x_p = x_p + torch.cholesky_solve(r[..., None], cholG)[..., 0]
-        y_p = torch.where(active > 0, (x_p[:, box0:] - b_act) / delta,
-                          torch.zeros_like(b_act))
-        z_p = torch.clamp(x_p[:, box0:], lb, ub)
-        p0, d0, _, _ = residuals(x, z, y)
-        p1, d1, _, _ = residuals(x_p, z_p, y_p)
-        better = (p1 + d1) < (p0 + d0)
-        x, z, y = pick(better, x_p, x), pick(better, z_p, z), pick(better, y_p, y)
+    with span("solve.status"):
+        pri, dua, pri_s, dua_s = residuals(x, z, y)
+        solved = ((pri <= s.eps_abs + s.eps_rel * pri_s)
+                  & (dua <= s.eps_abs + s.eps_rel * dua_s))
+        inacc = ((pri <= 10 * (s.eps_abs + s.eps_rel * pri_s))
+                 & (dua <= 10 * (s.eps_abs + s.eps_rel * dua_s)))
+        status = torch.where(
+            solved, admm.SOLVED,
+            torch.where(inacc, admm.SOLVED_INACCURATE,
+                        admm.MAX_ITER_REACHED))
+        u = x * D
+        states = (qp.F @ u[:, None, :, None])[..., 0] + qp.f
+        return CondensedSolution(
+            u=u, y=y * E / c_s[:, None], states=states,
+            status=status.to(torch.int32), pri_res=pri, dua_res=dua,
+            kinv=kinv_out, rho_vec=rho_out, rho_scalar=rho_scalar_out,
+            guard_fired=guard_fired)
 
-    pri, dua, pri_s, dua_s = residuals(x, z, y)
-    solved = ((pri <= s.eps_abs + s.eps_rel * pri_s)
-              & (dua <= s.eps_abs + s.eps_rel * dua_s))
-    inacc = ((pri <= 10 * (s.eps_abs + s.eps_rel * pri_s))
-             & (dua <= 10 * (s.eps_abs + s.eps_rel * dua_s)))
-    status = torch.where(
-        solved, admm.SOLVED,
-        torch.where(inacc, admm.SOLVED_INACCURATE, admm.MAX_ITER_REACHED))
-    u = x * D
-    states = (qp.F @ u[:, None, :, None])[..., 0] + qp.f
-    return CondensedSolution(
-        u=u, y=y * E / c_s[:, None], states=states,
-        status=status.to(torch.int32), pri_res=pri, dua_res=dua,
-        kinv=kinv_out, rho_vec=rho_out, rho_scalar=rho_scalar_out,
-        guard_fired=guard_fired)
+
+solve.iterations = 0
+solve.refresh_skips = 0

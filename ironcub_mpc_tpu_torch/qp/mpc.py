@@ -32,6 +32,7 @@ from ..horizon.schedule import HorizonSchedule
 from ..ops import admm
 from ..ops import jet_model as jm
 from ..ops.so3 import euler_rate_matrix, matrix_to_rpy, unwrap_rpy
+from ..utils.profiling import span
 from . import assembly
 from . import condensed
 from .blocks import LambdaInit, LinearizedDynamics, linearize
@@ -311,15 +312,22 @@ def mpc_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel: Tuple[int, ...],
              carry: MPCCarry, snap: RobotSnapshot,
              est_thrust_dot) -> Tuple[MPCCarry, MPCOutput]:
     """One 200 Hz multi-rate MPC step for every lane: update + solve +
-    extract. ``est_thrust_dot`` is [B, 4]."""
+    extract. ``est_thrust_dot`` is [B, 4]. While a profiler records, the
+    condensed tick is the span ``mpc.tick`` with its stages ``mpc.prep``,
+    ``mpc.condense``, ``mpc.solve`` and ``mpc.finish`` inside it."""
     if cfg.qp_solver == "condensed":
-        carry, prep = _tick_prep(cfg, joint_sel, problem, carry, snap,
-                                 est_thrust_dot)
-        qp = condense_from_prep(cfg, sched, joint_sel, problem, carry,
-                                prep)[0]
-        csol = solve_condensed(cfg, settings, problem, carry, qp)
-        return extract_condensed(cfg, joint_sel, carry, csol, settings,
-                                 problem, sched, prep, qp)
+        with span("mpc.tick"):
+            with span("mpc.prep"):
+                carry, prep = _tick_prep(cfg, joint_sel, problem, carry,
+                                         snap, est_thrust_dot)
+            with span("mpc.condense"):
+                qp = condense_from_prep(cfg, sched, joint_sel, problem,
+                                        carry, prep)[0]
+            with span("mpc.solve"):
+                csol = solve_condensed(cfg, settings, problem, carry, qp)
+            with span("mpc.finish"):
+                return extract_condensed(cfg, joint_sel, carry, csol,
+                                         settings, problem, sched, prep, qp)
     nj, nt = cfg.n_ctrl_joints, cfg.n_jets
     sel = index_tensor(tuple(joint_sel), carry.joints_pos_ref.device)
     g, A, lb, ub, carry, prep = _assemble(cfg, sched, joint_sel, problem,

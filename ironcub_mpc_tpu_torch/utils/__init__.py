@@ -1,1 +1,1 @@
-from .profiling import DeadlineMonitor, Timer, solves_per_second  # noqa: F401
+from .profiling import solves_per_second, span  # noqa: F401

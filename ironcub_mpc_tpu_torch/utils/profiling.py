@@ -1,11 +1,10 @@
-"""Profiling and real-time instrumentation (counterpart of
-``ironcub_mpc_tpu/utils/profiling.py``).
+"""Profiling hooks (counterpart of ``ironcub_mpc_tpu/utils/profiling.py``).
 
-The reference instruments the control loop with wall-clock timing around
-update+solve, a rolling average print every 200 ticks and a deadline-overrun
-warning (variable_sampling_mpc.py:110-123). This module provides the same
-counters plus a device trace (``torch.profiler``, written as a Chrome trace)
-and solves/s accounting for batched runs.
+:func:`span` names a stage of the program on the profiler's timeline and
+costs one test of a Python flag when no profiler records;
+:func:`device_trace` writes a ``torch.profiler`` trace as a Chrome trace;
+:func:`solves_per_second` is the solves/s of a batched solve. The real-time
+driver counts its own deadline overruns (``runtime/native.py``).
 """
 
 from __future__ import annotations
@@ -14,60 +13,24 @@ import contextlib
 import os
 import time
 from pathlib import Path
-from typing import List
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..core.types import tree_map
 
 
-class Timer:
-    """Wall-clock timer with rolling statistics (`time_MPC` equivalent)."""
-
-    def __init__(self, window: int = 200):
-        self.window = window
-        self.samples: List[float] = []
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.samples.append(time.perf_counter() - self._t0)
-        return False
-
-    @property
-    def last(self) -> float:
-        return self.samples[-1]
-
-    def rolling_mean(self) -> float:
-        recent = self.samples[-self.window:]
-        return sum(recent) / max(len(recent), 1)
-
-    def series(self):
-        import numpy as np
-
-        return np.asarray(self.samples)
+_NO_SPAN = contextlib.nullcontext()
 
 
-class DeadlineMonitor:
-    """Deadline-overrun accounting (variable_sampling_mpc.py:122-123)."""
-
-    def __init__(self, period: float, verbose: bool = True):
-        self.period = period
-        self.verbose = verbose
-        self.overruns = 0
-        self.worst = 0.0
-
-    def check(self, elapsed: float) -> bool:
-        over = elapsed > self.period
-        if over:
-            self.overruns += 1
-            self.worst = max(self.worst, elapsed - self.period)
-            if self.verbose:
-                print(f"MPC exceeded the period by: {elapsed - self.period:.6f}")
-        return over
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` while a profiler records
+    on this process, else one shared null context: with no profiler it
+    enters no dispatcher op and touches no tensor (a test of the profiler's
+    Python flag, so it also stays inert under a CUDA-graph capture)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _cuda_devices(tree) -> set:
@@ -109,8 +72,12 @@ def solves_per_second(batch: int, iters: int, fn, *args) -> float:
 def device_trace(logdir: str):
     """``torch.profiler`` over the body — host activity, and the card's
     where one is present — written on exit as a Chrome trace JSON
-    (``trace_<pid>_<ns>.json``) into ``logdir``. Yields the profiler, so
-    the caller can also read ``key_averages()``."""
+    (``trace_<pid>_<ns>.json``) into ``logdir``. The trace carries the
+    program's spans (:func:`span`: ``mpc.tick`` and its stages
+    ``mpc.prep``, ``mpc.condense``, ``mpc.solve``, ``mpc.finish``;
+    ``solve.*`` inside the solve), so the tick's stages show on the
+    device's timeline. Yields
+    the profiler, so the caller can also read ``key_averages()``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -29,8 +29,7 @@ from ironcub_mpc_tpu_torch.runtime import native
 from ironcub_mpc_tpu_torch.runtime import telemetry as ttel
 from ironcub_mpc_tpu_torch.runtime.loop import TickTelemetry
 from ironcub_mpc_tpu_torch.sim import mjcf as tmjcf
-from ironcub_mpc_tpu_torch.utils.profiling import (DeadlineMonitor, Timer,
-                                                   device_trace,
+from ironcub_mpc_tpu_torch.utils.profiling import (device_trace,
                                                    solves_per_second)
 
 from test_torch_tick import one_torch_thread  # noqa: F401
@@ -170,19 +169,6 @@ def test_ring_concurrent_python_threads():
 # ---------------------------------------------------------------------------
 # profiling
 # ---------------------------------------------------------------------------
-
-
-def test_timer_and_deadline_monitor():
-    t = Timer(window=3)
-    for _ in range(5):
-        with t:
-            pass
-    assert len(t.samples) == 5 and t.rolling_mean() >= 0
-    assert t.series().shape == (5,) and t.last == t.samples[-1]
-    d = DeadlineMonitor(period=0.005, verbose=False)
-    assert not d.check(0.004)
-    assert d.check(0.006)
-    assert d.overruns == 1 and abs(d.worst - 0.001) < 1e-12
 
 
 def test_solves_per_second_walks_tuples_of_named_tuples():
