@@ -33,6 +33,7 @@ from ..horizon.schedule import HorizonSchedule
 from ..ops import admm
 from ..ops import jet_model as jm
 from ..ops import kernels
+from ..utils import graphs
 from ..utils.profiling import span
 from .blocks import LinearizedDynamics
 
@@ -664,14 +665,18 @@ def solve(cfg: MPCConfig, qp: CondensedQP,
             ub_f = pv_box(ub, s.inf_bound)
             ub_f[:, nU:] = 0.0
 
+            # each kernel through graphs.launch: a cut between two graphs
+            # where the tick is captured (qp/mpc.py)
             def woodbury_k(Kinv_p, rho_old, rho_new, n_ns=s.ns_steps):
-                return kernels.woodbury_ns(
+                return graphs.launch(
+                    kernels, "woodbury_ns",
                     Kinv_p.contiguous(), H_p, pv_box(rho_new - rho_old),
                     pv_box(rho_new), box0=box0, n_box=nb, sigma=s.sigma,
                     n_ns=n_ns)
 
             def run_segment_k(Kinv_p, rho_vec, x, z, y, length):
-                xf, zf, yf = kernels.admm_segment(
+                xf, zf, yf = graphs.launch(
+                    kernels, "admm_segment",
                     Kinv_p.contiguous(), q_f, lb_f, ub_f, pv_box(rho_vec),
                     pv_box(1.0 / rho_vec),
                     F_.pad(x, (0, P - nU)).contiguous(), pv_box(z),

@@ -18,10 +18,12 @@ With ``cfg.enable_debug_log_mode`` each output carries a
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import resolve_device
 from ..core import constants as C
@@ -31,7 +33,9 @@ from ..core.types import (DebugInfo, MPCCarry, MPCOutput, RobotSnapshot,
 from ..horizon.schedule import HorizonSchedule
 from ..ops import admm
 from ..ops import jet_model as jm
+from ..ops import kernels
 from ..ops.so3 import euler_rate_matrix, matrix_to_rpy, unwrap_rpy
+from ..utils import graphs
 from ..utils.profiling import span
 from . import assembly
 from . import condensed
@@ -307,6 +311,26 @@ def _assemble(cfg, sched, joint_sel, problem: MPCProblem, carry: MPCCarry,
     return g, A, lb, ub, carry, prep
 
 
+def condensed_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel,
+                   settings: admm.ADMMSettings, problem: MPCProblem,
+                   carry: MPCCarry, snap: RobotSnapshot, est_thrust_dot,
+                   stage=span) -> Tuple[MPCCarry, MPCOutput]:
+    """The condensed tick's four stages, each inside ``stage(name)``:
+    eagerly a profiler span (:func:`span`), while :class:`_TickGraphs`
+    captures the tick a graph of its own."""
+    with stage("mpc.prep"):
+        carry, prep = _tick_prep(cfg, joint_sel, problem, carry, snap,
+                                 est_thrust_dot)
+    with stage("mpc.condense"):
+        qp = condense_from_prep(cfg, sched, joint_sel, problem, carry,
+                                prep)[0]
+    with stage("mpc.solve"):
+        csol = solve_condensed(cfg, settings, problem, carry, qp)
+    with stage("mpc.finish"):
+        return extract_condensed(cfg, joint_sel, carry, csol, settings,
+                                 problem, sched, prep, qp)
+
+
 def mpc_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel: Tuple[int, ...],
              settings: admm.ADMMSettings, problem: MPCProblem,
              carry: MPCCarry, snap: RobotSnapshot,
@@ -314,20 +338,23 @@ def mpc_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel: Tuple[int, ...],
     """One 200 Hz multi-rate MPC step for every lane: update + solve +
     extract. ``est_thrust_dot`` is [B, 4]. While a profiler records, the
     condensed tick is the span ``mpc.tick`` with its stages ``mpc.prep``,
-    ``mpc.condense``, ``mpc.solve`` and ``mpc.finish`` inside it."""
+    ``mpc.condense``, ``mpc.solve`` and ``mpc.finish`` inside it.
+
+    A condensed tick on CUDA with per-lane decisions and the kernels on
+    reads nothing back, so it runs from CUDA graphs (:class:`_TickGraphs`),
+    captured at the first call for its problem and input layout; otherwise
+    (``settings.batch_guard``, ``kernel_mode="off"``, the CPU) it runs
+    eagerly. Counters: ``mpc_tick.graphed_ticks`` (ticks run from graphs)
+    and ``mpc_tick.graph_captures``."""
     if cfg.qp_solver == "condensed":
+        if _graphs_engage(cfg, settings, carry):
+            graphed = _tick_graphs(cfg, sched, joint_sel, settings, problem,
+                                   carry, snap, est_thrust_dot)
+            mpc_tick.graphed_ticks += 1
+            return graphed(carry, snap, est_thrust_dot)
         with span("mpc.tick"):
-            with span("mpc.prep"):
-                carry, prep = _tick_prep(cfg, joint_sel, problem, carry,
-                                         snap, est_thrust_dot)
-            with span("mpc.condense"):
-                qp = condense_from_prep(cfg, sched, joint_sel, problem,
-                                        carry, prep)[0]
-            with span("mpc.solve"):
-                csol = solve_condensed(cfg, settings, problem, carry, qp)
-            with span("mpc.finish"):
-                return extract_condensed(cfg, joint_sel, carry, csol,
-                                         settings, problem, sched, prep, qp)
+            return condensed_tick(cfg, sched, joint_sel, settings, problem,
+                                  carry, snap, est_thrust_dot)
     nj, nt = cfg.n_ctrl_joints, cfg.n_jets
     sel = index_tensor(tuple(joint_sel), carry.joints_pos_ref.device)
     g, A, lb, ub, carry, prep = _assemble(cfg, sched, joint_sel, problem,
@@ -350,6 +377,121 @@ def mpc_tick(cfg: MPCConfig, sched: HorizonSchedule, joint_sel: Tuple[int, ...],
         x[:, ns * cfg.n_iter:ns * (cfg.n_iter + 1)], sol.status, sol.pri_res,
         sol.dua_res, sol.x, sol.y,
         torch.zeros_like(sol.status, dtype=torch.bool), debug)
+
+
+mpc_tick.graphed_ticks = 0
+mpc_tick.graph_captures = 0
+
+
+# ---------------------------------------------------------------------------
+# the condensed tick as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _graphs_engage(cfg: MPCConfig, settings: admm.ADMMSettings,
+                   carry: MPCCarry) -> bool:
+    """A condensed tick on CUDA with per-lane decisions and the kernels on
+    reads nothing back, so a graph misses no host branch. A batch-wide
+    decision (``settings.batch_guard``) reads the device on the host, and
+    so does the unpadded refresh with the kernels off (``torch.linalg.
+    solve`` checks its factorisation there beyond 32 boxed inputs)."""
+    return (cfg.qp_solver == "condensed" and not settings.batch_guard
+            and admm.kernels_enabled(settings)
+            and carry.warm_x.device.type == "cuda")
+
+
+def _solve_counters():
+    """(function, attribute) of each host counter the solve moves in
+    Python, which a replay moves by what the capture's run moved."""
+    return [(condensed.solve, a) for a, v in vars(condensed.solve).items()
+            if type(v) is int]
+
+
+def _all_counters():
+    """The solve's counters and each kernel wrapper's ``launches``."""
+    wrappers = [f for f in vars(kernels).values()
+                if type(getattr(f, "launches", None)) is int]
+    return _solve_counters() + [(f, "launches") for f in wrappers]
+
+
+class _TickGraphs:
+    """The condensed tick of one problem and one input layout, captured.
+
+    Each stage is a graph of its own, and the solve is cut at every call of
+    a hand-written kernel, which stays an eager call through its module
+    (``utils/graphs.py``). A call copies the inputs into static buffers
+    and replays the stages inside their spans; it clones the outputs out
+    of one flat buffer a dtype, so the caller owns what it gets and no
+    later tick writes over it."""
+
+    def __init__(self, cfg, sched, joint_sel, settings, problem, carry,
+                 snap, est_thrust_dot):
+        self._problem = [weakref.ref(t) for t in graphs.leaves(problem)]
+        saved = [(f, a, getattr(f, a)) for f, a in _all_counters()]
+        self.inputs = graphs.StaticInputs((carry, snap, est_thrust_dot))
+        rec = graphs.Piecewise(carry.warm_x.device)
+        cur = torch.cuda.current_stream(carry.warm_x.device)
+        self.inputs.copy_from((carry, snap, est_thrust_dot))
+        rec.stream.wait_stream(cur)
+        # the warm-up makes every cached constant, index and library handle
+        # the capture would otherwise make inside a graph
+        with torch.cuda.stream(rec.stream):
+            condensed_tick(cfg, sched, joint_sel, settings, problem,
+                           *self.inputs.tree)
+        before = [getattr(f, a) for f, a in _solve_counters()]
+        with rec.capture():
+            out = condensed_tick(cfg, sched, joint_sel, settings, problem,
+                                 *self.inputs.tree, stage=rec.stage)
+            self.outputs = graphs.FlatOutputs(out)
+            self.outputs.write(out)
+        self.counts = [(f, a, getattr(f, a) - b)
+                       for (f, a), b in zip(_solve_counters(), before)]
+        for f, a, v in saved:
+            setattr(f, a, v)
+        cur.wait_stream(rec.stream)
+        self.stages = rec.stages
+        mpc_tick.graph_captures += 1
+
+    def holds(self, problem_tensors) -> bool:
+        """True while each tensor of the problem is the one captured."""
+        return len(problem_tensors) == len(self._problem) and all(
+            r() is t for r, t in zip(self._problem, problem_tensors))
+
+    def __call__(self, carry, snap, est_thrust_dot):
+        last = len(self.stages) - 1
+        with span("mpc.tick"):
+            for i, (name, steps) in enumerate(self.stages):
+                with span(name):
+                    if i == 0:
+                        self.inputs.copy_from((carry, snap, est_thrust_dot))
+                    for step in steps:
+                        step()
+                    if i == last:
+                        result = self.outputs.take()
+        for f, a, n in self.counts:
+            setattr(f, a, getattr(f, a) + n)
+        return result
+
+
+# problem.H -> {key: _TickGraphs}: a problem's graphs go with its tensors
+_GRAPHS = WeakIdKeyDictionary()
+
+
+def _tick_graphs(cfg, sched, joint_sel, settings, problem, carry, snap,
+                 est_thrust_dot) -> _TickGraphs:
+    """The captured tick for this problem, configuration and input layout
+    (shapes and dtypes, not addresses), captured at its first call."""
+    pts = graphs.leaves(problem)
+    key = (tuple(map(id, pts)), cfg, sched,
+           tuple(joint_sel), settings, carry.warm_x.device,
+           tuple((t.shape, t.dtype) if isinstance(t, torch.Tensor) else t
+                 for t in (*carry, *snap, est_thrust_dot)))
+    held = _GRAPHS.setdefault(problem.H, {})
+    tg = held.get(key)
+    if tg is None or not tg.holds(pts):
+        tg = held[key] = _TickGraphs(cfg, sched, joint_sel, settings,
+                                     problem, carry, snap, est_thrust_dot)
+    return tg
 
 
 def _finish_tick(cfg, sel, carry: MPCCarry, delta_joints, throttle_v,

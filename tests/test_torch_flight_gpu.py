@@ -13,7 +13,7 @@ import torch
 
 from ironcub_mpc_tpu_torch import convert
 from ironcub_mpc_tpu_torch.ops import kernels
-from ironcub_mpc_tpu_torch.qp import condensed
+from ironcub_mpc_tpu_torch.qp import condensed, mpc
 from ironcub_mpc_tpu_torch.runtime import flight
 
 N_TICKS = 10
@@ -61,10 +61,12 @@ def test_closed_loop_on_card_matches_cpu_and_launches_kernels(loops):
 @pytest.mark.gpu
 def test_tick_never_waits_for_the_device(loops):
     """With per-lane decisions a tick reads nothing back and copies nothing
-    from the host: any synchronising call raises under the debug mode."""
+    from the host: any synchronising call raises under the debug mode. The
+    MPC tick is a replay of its CUDA graphs."""
     loop, problem, carry = loops["cuda"]
     carry, _ = loop.tick(problem, carry)              # constants are cached
     condensed.batch_any.syncs = 0
+    graphed = mpc.mpc_tick.graphed_ticks
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -73,4 +75,5 @@ def test_tick_never_waits_for_the_device(loops):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert condensed.batch_any.syncs == 0
+    assert mpc.mpc_tick.graphed_ticks == graphed + 1
     assert int(tel.solver_status[0]) in (1, 2)
