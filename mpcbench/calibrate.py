@@ -113,8 +113,9 @@ def bf16_kernels(torch):
 def tf32_switch(torch):
     """Within the block PyTorch's TF32 switch is on (after the port's
     import, which pins it off)."""
-    import ironcub_mpc_tpu_torch  # noqa: F401
+    from mpcbench.core import port
 
+    port.load()
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32,
              torch.get_float32_matmul_precision())
@@ -146,10 +147,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from mpcbench.core import driver
+    from mpcbench.core import driver, port
 
     torch.set_num_threads(2)
-    import ironcub_mpc_tpu_torch  # noqa: F401  (pins TF32 off on import)
+    port.load()
 
     control = (contextlib.nullcontext() if args.control == "none"
                else CONTROLS[args.control](torch))
@@ -177,20 +178,21 @@ def lead_in_readings(driver, args) -> list:
         t0 = time.perf_counter()
         cell = driver.Cell(args.workload, seed, args.device,
                            overrides=dict(warm_passes=0))
+        replay = cell.loop
         gaps = {}
-        for s, rows in cell.start.items():
+        for s, rows in replay.start.items():
             worst = {name: 0.0 for name in check.GROUPS}
-            for j, lane in enumerate(cell.draw.check_lanes):
+            for j, lane in enumerate(replay.draw.check_lanes):
                 ref = chain.run_lane(cell.config_path, spec.stream_path(s),
-                                     cell.draw.jitter[lane], 0, None,
-                                     cell.lead_in)
+                                     replay.draw.jitter[lane], 0, None,
+                                     replay.lead_in)
                 check._widest(worst, "", np.asarray(rows[j], np.float64),
                               {k: v[-1] for k, v in ref.items()})
             gaps[s] = worst
         row = dict(workload=args.workload, control=args.control, seed=seed,
                    lead_in=driver.lead_in_statuses(cell), gaps=gaps,
                    seconds=time.perf_counter() - t0)
-        del cell
+        del cell, replay
         if args.device == "cuda":
             torch.cuda.empty_cache()
         lines.append(json.dumps(row))

@@ -1,23 +1,25 @@
 """One run of one cell: set-up, the measured (or traced) window, the check.
 
-Set-up builds the two kernels the cells launch (``build/torch_kernels/``
-inside the checkout, the port's own fixed cache), loads each stream of the
-mix onto the device, configures the controller from the stream's frame 0,
-runs the stream's lead-in ticks, makes every pass tick's inputs, and warms
-up with ``warm_passes`` passes of each stream through the window's own
-loop. ``setup_s`` runs from the process's start to the window's first tick.
+The cell's traffic mix names the loop that drives it
+(``mpcbench/loops/<loop>.py``; ``loops/__init__.py`` sets out what a loop
+provides): the loop's set-up builds the program and its inputs and warms
+up, its passes are what the window runs, and its check gives the numbers
+compared. The driver keeps what every loop shares. ``setup_s`` runs from
+the process's start to the window's first tick.
 
-The window replays passes, the streams in turn, each from its lead-in carry
-restored by a device copy, in a closed loop of one caller: a tick starts
-when the previous one returned. With ``commands_to_host`` ``every_tick`` a
-tick ends when its commands are on the host and the window ends with the
-tick that crosses ``seconds``; with ``every_pass`` the device is
-synchronised at the end of each pass and the window ends with the round of
-passes that crosses ``seconds``. Every tick keeps its solver status and its
-checked lanes' commands; the check runs once the window has closed, its
-peak memory has been read and the program's state is freed.
+The window runs the loop's passes in turn, in a closed loop of one caller:
+a tick starts when the previous one returned. With ``commands_to_host``
+``every_tick`` a tick ends when its commands are on the host and the window
+ends with the tick that crosses ``seconds``; with ``every_pass`` the device
+is synchronised at the end of each pass and the window ends with the round
+of passes that crosses ``seconds``. Every tick keeps its solver statuses
+and its record; the check runs once the window has closed and its peak
+memory has been read, and the loop frees the program's state before its
+reference runs. A lane-tick counts as failed where its status is neither
+solved nor solved inaccurate, and so does each checked output that is not
+finite.
 
-``--trace 1`` runs ``trace_ticks`` ticks of each stream instead, under
+``--trace 1`` runs ``trace_ticks`` ticks of each pass instead, under
 ``torch.profiler``, with the kernel wrappers' calls recorded, each
 batch-wide decision in a span of its own and the program's counters read
 before and after, and reports the per-layer metrics
@@ -47,7 +49,7 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def _sync(dev) -> None:
+def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -78,8 +80,8 @@ NOSPAN = _NoSpan()
 
 
 class Cell:
-    """A cell after set-up: the controller, each stream's problem, lead-in
-    carry and pass inputs, and the seed's draw."""
+    """A cell after set-up: its entries of the spec read, and the loop its
+    traffic mix names, set up (``loop``)."""
 
     def __init__(self, name, seed, device, overrides=None):
         self.name = name
@@ -91,93 +93,27 @@ class Cell:
         self.traffic.update(overrides or {})
         self.limits = spec.cell(name)["limits"]
         self.dev = torch.device(device)
-        self.ctl = port.build(self.config, self.traffic)
-        self.draw = traffic_mod.draw(self.traffic, seed)
         self.lanes = int(self.traffic["lanes"])
-        self.lead_in = int(self.traffic["lead_in"])
         self.per_tick = self.traffic["commands_to_host"] == "every_tick"
-        self.check_idx = torch.as_tensor(self.draw.check_lanes,
-                                         device=self.dev)
-        self.every_lane = len(self.draw.check_lanes) == self.lanes
-        if self.dev.type == "cuda":
-            port.build_kernels()
-        jitter = torch.as_tensor(self.draw.jitter, device=self.dev)
-        self.streams = {}
-        self.start = {}
-        self.lead_in_status = {}
-        for s in self.traffic["streams"]:
-            st = port.load_stream(spec.stream_path(s), self.dev)
-            problem, carry = port.configure(self.ctl, st, self.lanes,
-                                            self.dev)
-            rows = None
-            for t in range(self.lead_in):
-                carry, out = port.tick(self.ctl, problem, carry,
-                                       *port.snapshot(st, t, self.lanes,
-                                                      jitter))
-                rows = self._rows(out)
-                self.lead_in_status.setdefault(s, []).append(out.status)
-            self.start[s] = None if rows is None else np.asarray(
-                rows.cpu().numpy(), np.float64)
-            ticks = traffic_mod.pass_ticks(self.traffic, st.n_ticks)
-            inputs = [port.snapshot(st, t, self.lanes, jitter) for t in ticks]
-            self.streams[s] = (problem, carry, list(ticks), inputs)
-        for _ in range(int(self.traffic["warm_passes"])):
-            for s in self.streams:
-                self.run_pass(s, [], [])
-        _sync(self.dev)
-
-    def _rows(self, out):
-        """The checked lanes' outputs of a tick, [checked lanes, 61]: the
-        commands and the terminal predicted state."""
-        rows = torch.cat((out.joints_pos_ref, out.throttle, out.thrust_des,
-                          out.thrust_dot_des, out.final_state), dim=1)
-        return rows if self.every_lane else rows.index_select(
-            0, self.check_idx)
-
-    def run_pass(self, s, records, statuses, n_ticks=None, latencies=None,
-                 deadline=None, span=None):
-        """One pass of stream ``s`` (its first ``n_ticks`` ticks). Returns
-        False when a tick crossed ``deadline``."""
-        span = span or NOSPAN
-        problem, saved, ticks, inputs = self.streams[s]
-        carry = port.clone(saved)
-        n = len(ticks) if n_ticks is None else min(n_ticks, len(ticks))
-        for t, (snap, est) in zip(ticks[:n], inputs[:n]):
-            t1 = time.perf_counter()
-            with span("mpc_tick"):
-                carry, out = port.tick(self.ctl, problem, carry, snap, est)
-            with span("commands"):
-                rows = self._rows(out)
-                if self.per_tick:
-                    rows = rows.cpu()
-            t2 = time.perf_counter()
-            records.append((s, t, rows))
-            statuses.append(out.status)
-            if latencies is not None:
-                latencies.append(t2 - t1)
-            if deadline is not None and self.per_tick and t2 >= deadline:
-                return False
-        if not self.per_tick:
-            with span("pass_sync"):
-                _sync(self.dev)
-        return True
+        self.loop = spec.loop(self.traffic["loop"]).Loop(self, seed)
 
 
 def measure(cell: Cell, seconds: float):
     """The window: (seconds, latencies, records, statuses)."""
+    loop = cell.loop
     records, statuses, lat = [], [], []
     t0 = time.perf_counter()
     deadline = t0 + seconds
     running = True
     while running:
-        for s in cell.streams:
-            if not cell.run_pass(s, records, statuses, latencies=lat,
+        for s in loop.passes:
+            if not loop.run_pass(s, records, statuses, latencies=lat,
                                  deadline=deadline):
                 running = False
                 break
         if not cell.per_tick and time.perf_counter() >= deadline:
             running = False
-    _sync(cell.dev)
+    sync(cell.dev)
     return t0, time.perf_counter() - t0, lat, records, statuses
 
 
@@ -194,10 +130,10 @@ def traced(cell: Cell):
     with port.instrument(calls) as spans:
         with profile(activities=activities) as prof:
             with record_function(trace.WINDOW_SPAN):
-                for s in cell.streams:
-                    cell.run_pass(s, records, statuses, n_ticks=n,
-                                  span=record_function)
-                _sync(cell.dev)
+                for s in cell.loop.passes:
+                    cell.loop.run_pass(s, records, statuses, n_ticks=n,
+                                       span=record_function)
+                sync(cell.dev)
     after = port.counters()
     counters = {k: v - before.get(k, 0) for k, v in after.items()}
     events = prof.events()
@@ -227,38 +163,19 @@ def _check(cell: Cell, records, statuses, detail=None):
     st = torch.stack(statuses).cpu().numpy()
     attempted = int(st.size)
     failed = int((~np.isin(st, (1, 2))).sum())
-    host = [(s, t, r.cpu().numpy() if isinstance(r, torch.Tensor) else r)
-            for s, t, r in records]
-    records.clear()
-    statuses.clear()
-    cell.streams.clear()
-    if cell.dev.type == "cuda":
-        torch.cuda.empty_cache()
-    todo = check.cases(host, cell.start, cell.lead_in,
-                       len(cell.draw.check_lanes), cell.draw.ticks,
-                       cell.traffic["check_ticks"])
-    passes = check.first_passes(host, cell.lead_in)
-    steps, chained = check.references(
-        cell.config_path, spec.stream_path,
-        cell.draw.jitter[cell.draw.check_lanes], todo, passes, cell.start,
-        cell.lead_in)
-    numbers = check.compare(host, todo, steps, passes, chained)
+    numbers = cell.loop.check(records, statuses, detail)
     failed += numbers["nonfinite"]
-    if detail is not None:
-        detail.update(numbers=numbers,
-                      cases=sum(len(c) for c in todo.values()),
-                      chained=sum(len(r) for r in passes.values()))
     correct, table = check.judge(numbers, cell.limits)
     return attempted, failed, correct, table
 
 
 def lead_in_statuses(cell: Cell) -> dict:
-    """{stream: {solver status: lane-ticks}} of set-up's lead-in ticks,
-    which start from ``configure``'s carry (``PERF.md`` §7): outside the
+    """{pass: {solver status: lane-ticks}} of the ticks the loop's set-up
+    ran from the controller's cold carry (``PERF.md`` §7): outside the
     window, ``attempted``, ``failed`` and the check, and shown beside
     them."""
     out = {}
-    for s, sts in cell.lead_in_status.items():
+    for s, sts in cell.loop.lead_in_status.items():
         st = torch.stack(sts).cpu().numpy()
         out[s] = {STATUS.get(int(v), str(int(v))): int((st == v).sum())
                   for v in np.unique(st)}

@@ -1,6 +1,8 @@
 """What the benchmark takes from the program: its configuration types, its
-tick and its counters. The only module of the harness that imports
-``ironcub_mpc_tpu_torch``, and only inside functions.
+MPC tick and its counters. With the loops (``mpcbench/loops/*.py``) the
+only modules of the harness that import ``ironcub_mpc_tpu_torch``, and only
+inside functions; a loop takes what this module gives and imports any more
+of the program it drives itself.
 
 - :func:`build` turns a configuration file and a traffic mix into the
   port's ``MPCConfig``, horizon schedule, joint selector and
@@ -9,6 +11,8 @@ tick and its counters. The only module of the harness that imports
   on the device (the benchmark's own reader: it does not go through
   ``runtime/replay.py``);
 - :func:`configure` and :func:`tick` call the port's ``qp/mpc.py``;
+- :func:`build_kernels` builds the kernels a loop names, and :func:`load`
+  imports the program alone;
 - :func:`counters` reads every counter the program keeps (its kernel
   wrappers' launches, its batch-wide decisions' host read-backs, and any
   later one kept the same way), and :func:`instrument` wraps every
@@ -27,7 +31,6 @@ import numpy as np
 import torch
 
 PACKAGE = "ironcub_mpc_tpu_torch"
-KERNELS = ("admm_segment", "woodbury_ns")
 CHANNELS = ("positionCoM", "velocityCoM", "RPY", "RPYDot")
 
 
@@ -48,6 +51,12 @@ class Controller(NamedTuple):
     sched: object
     sel: tuple
     settings: object
+
+
+def load() -> None:
+    """Import the program: its import pins PyTorch's float32 products to
+    full precision (TF32 off), which a control that lowers them follows."""
+    import ironcub_mpc_tpu_torch  # noqa: F401
 
 
 def build(config: dict, traffic: dict) -> Controller:
@@ -155,11 +164,11 @@ def counters() -> dict:
     return out
 
 
-def build_kernels() -> None:
-    """Compile the kernels this benchmark launches, where not built yet."""
+def build_kernels(names) -> None:
+    """Compile the program's kernels ``names``, where not built yet."""
     from ironcub_mpc_tpu_torch.ops import kernels
 
-    kernels.build(KERNELS)
+    kernels.build(names)
 
 
 @contextlib.contextmanager

@@ -4,7 +4,7 @@ A reader takes the traced run's context and returns its number, or None
 where the trace holds nothing it can read: the harness then leaves the
 metric out of the line. The context (a dict):
 
-- ``ticks``: ticks in the traced window (all streams), ``lanes``: lanes;
+- ``ticks``: ticks in the traced window (all passes), ``lanes``: lanes;
 - ``trace``: a :class:`mpcbench.core.trace.Trace` (window, busy time,
   kernels, the heaviest operations and idle gaps), or None where no card
   was traced;

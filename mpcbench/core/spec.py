@@ -7,7 +7,10 @@ kernel's roofline count by adding files and entries, never by editing one:
 - ``cells/<workload>.json``: the limits of the cell's correctness check;
 - ``configs/<config>.json``: the deployment (``file`` in ``BENCHMARK.json``);
 - ``traffic/<traffic>.json``: the mix, read by ``core/traffic.py``;
-- ``streams/<stream>.npz``: a recorded plant stream a mix names;
+- ``loops/<loop>.py``: the loop that drives a mix, named by its ``loop``
+  key (``replay`` where it names none): its keys, set-up, passes and check;
+- ``streams/<stream>.npz``: a recorded plant stream a mix names, or other
+  data a loop loads;
 - ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)``;
 - ``roofline/<kernel>.py``: a kernel's operations and bytes a call, with
   ``roofline/peaks.json`` the card's published peaks.
@@ -92,6 +95,12 @@ def metric_reader(name: str):
     """``read(ctx)`` of ``metrics/<name>.py``."""
     return _module(BENCH_DIR / "metrics" / f"{name}.py",
                    "mpcbench_metric_").read
+
+
+def loop(name: str):
+    """The module ``loops/<name>.py``: ``KEYS`` and ``Loop``
+    (``loops/__init__.py`` sets out what a loop provides)."""
+    return _module(BENCH_DIR / "loops" / f"{name}.py", "mpcbench_loop_")
 
 
 def roofline(kernel: str):

@@ -6,10 +6,11 @@
 The cell is a ``workloads`` entry of ``BENCHMARK.json``. With ``--trace 0``
 the line carries the cell's end-to-end metrics, with ``--trace 1`` its
 per-layer metrics read from a ``torch.profiler`` trace. Its last key,
-``check``, gives each number compared with the float64 reference beside its
-limit, and the same lines end standard error; ``lead_in`` before it gives the
-solver statuses of set-up's lead-in ticks, which start from the controller's
-cold carry and lie outside the window. Without as many CUDA devices
+``check``, gives each number compared with the reference of the loop that
+drives the cell's mix beside its limit, and the same lines end standard
+error; ``lead_in`` before it gives the solver statuses of set-up's lead-in
+ticks, which start from the controller's cold carry and lie outside the
+window. Without as many CUDA devices
 as the cell asks for, or with JAX or the JAX package loaded once the window
 has closed, it prints no result and exits with another code than 0.
 """

@@ -56,10 +56,11 @@ def test_same_seed_same_inputs():
     from mpcbench.core import traffic
 
     t = traffic.load(spec.traffic_path("lanes_b1024"))
-    a, b = traffic.draw(t, 2 ** 31 + 5), traffic.draw(t, 2 ** 31 + 5)
+    draw = spec.loop(t["loop"]).draw
+    a, b = draw(t, 2 ** 31 + 5), draw(t, 2 ** 31 + 5)
     assert (a.jitter == b.jitter).all()
     assert (a.check_lanes == b.check_lanes).all()
-    c = traffic.draw(t, 2 ** 31 + 6)
+    c = draw(t, 2 ** 31 + 6)
     assert a.jitter.shape == c.jitter.shape and (a.jitter != c.jitter).any()
 
 

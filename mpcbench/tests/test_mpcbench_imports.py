@@ -1,7 +1,9 @@
 """What the benchmark may load: nothing that `mpcbench/run.py` runs imports
 `jax`, `jaxlib`, `flax` or the JAX package `ironcub_mpc_tpu` (top-level
-names compared whole: the port's name begins with the JAX package's), and
-the reference imports nothing of the program either."""
+names compared whole: the port's name begins with the JAX package's), the
+reference imports nothing of the program either, and of the harness only
+`core/port.py` and the loops (`loops/*.py`) import the program, inside
+functions."""
 
 import ast
 import subprocess
@@ -65,9 +67,24 @@ def test_reference_loads_nothing_of_the_program():
     assert python(code) == "[]"
 
 
-def imported_names(path):
+def imports(tree):
+    """The import statements of ``tree``."""
+    return [n for n in ast.walk(tree)
+            if isinstance(n, (ast.Import, ast.ImportFrom))]
+
+
+def module_level(tree):
+    """The import statements of ``tree`` that run when the module is
+    imported: those outside every function's body."""
+    inner = {id(n) for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in imports(f)}
+    return [n for n in imports(tree) if id(n) not in inner]
+
+
+def imported_names(path, select=imports):
     names = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    for node in select(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -83,3 +100,17 @@ def test_sources_name_no_forbidden_module():
         if "reference" in path.parts:
             assert "ironcub_mpc_tpu_torch" not in names, path
             assert "mpcbench" not in names, path
+
+
+def test_only_port_and_loops_import_the_program():
+    bench_dir = ROOT / "mpcbench"
+    harness = [p for p in bench_dir.rglob("*.py")
+               if "tests" not in p.relative_to(bench_dir).parts]
+    allowed = {bench_dir / "core" / "port.py",
+               *(bench_dir / "loops").glob("*.py")}
+    assert bench_dir / "loops" / "replay.py" in allowed
+    for path in harness:
+        names = imported_names(path, module_level)
+        assert "ironcub_mpc_tpu_torch" not in names, path
+        if path not in allowed:
+            assert "ironcub_mpc_tpu_torch" not in imported_names(path), path

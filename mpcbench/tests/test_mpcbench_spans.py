@@ -1,9 +1,11 @@
 """The readers of the program's own spans (``mpcbench/core/spans.py``): on
 synthetic events (clipped to the window, over its ticks, None without a
 trace or a span), on a real CPU profile of the port's ticks, and, ``-m gpu``,
-the ``mpc.tick`` spans on the card: the kernel launches inside them are
-every kernel the window's device timeline holds."""
+the ``mpc.tick`` spans on the card: the kernels launched inside them, a
+graph launch's by the profiler's correlation ids, are every kernel the
+window's device timeline holds."""
 
+from collections import Counter
 from types import SimpleNamespace
 
 import pytest
@@ -15,12 +17,13 @@ from mpcbench.core import driver, port, spans, spec, trace
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 STAGES = ("mpc.prep", "mpc.condense", "mpc.solve", "mpc.finish")
-LAUNCHES = ("cudaLaunchKernel", "cuLaunch")
+LAUNCHES = ("cudaLaunchKernel", "cuLaunch", "cudaGraphLaunch")
 
 
-def event(name, start, end, thread=1, device=DeviceType.CPU):
+def event(name, start, end, thread=1, device=DeviceType.CPU, **extra):
     return SimpleNamespace(name=name, device_type=device, thread=thread,
-                           time_range=SimpleNamespace(start=start, end=end))
+                           time_range=SimpleNamespace(start=start, end=end),
+                           **extra)
 
 
 def ctx_of(events, ticks, traced=True):
@@ -52,18 +55,54 @@ def test_host_ms_is_none_without_a_trace_or_a_span():
 def test_stage_spans_of_a_cpu_profile_sum_to_the_tick():
     """The port's stage spans on a CPU profile of three ticks: each reads,
     and together they hold nearly all of the ``mpc.tick`` spans' time."""
-    cell = driver.Cell("mk3_paper.lanes_b1024", 2 ** 31 + 61, "cpu",
-                       overrides=dict(lanes=2, check_lanes=1, warm_passes=0))
-    problem, carry, _, inputs = next(iter(cell.streams.values()))
+    replay = driver.Cell("mk3_paper.lanes_b1024", 2 ** 31 + 61, "cpu",
+                         overrides=dict(lanes=2, check_lanes=1,
+                                        warm_passes=0)).loop
+    problem, carry, _, inputs = next(iter(replay.streams.values()))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with record_function(trace.WINDOW_SPAN):
             for snap, est in inputs[:3]:
-                carry, _ = port.tick(cell.ctl, problem, carry, snap, est)
+                carry, _ = port.tick(replay.ctl, problem, carry, snap, est)
     ctx = ctx_of(prof.events(), 3)
     tick = spans.host_ms_per_tick(ctx, "mpc.tick")
     stages = [spans.host_ms_per_tick(ctx, s) for s in STAGES]
     assert all(v > 0 for v in stages)
     assert 0.9 * tick <= sum(stages) <= tick
+
+
+def launched_kernels(events, window) -> Counter:
+    """{correlation id: kernels} of the device timeline in ``window``,
+    counted as ``trace.read`` counts them. The profiler gives a kernel the
+    correlation id of the host call that launched it, and each kernel of a
+    graph the id of its ``cudaGraphLaunch``."""
+    w0, w1 = window.time_range.start, window.time_range.end
+    return Counter(
+        e.id for e in events
+        if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and e.name not in trace.SPANS
+        and not e.name.startswith(trace.NOT_KERNELS)
+        and e.time_range.end > w0 and e.time_range.start < w1)
+
+
+def test_a_launch_counts_the_kernels_it_started():
+    """A graph launch (id 7) counts its graph's kernels, copies and the
+    spans' device copies left out; a kernel's launch (id 8) its kernel inside
+    the window."""
+    window = event(trace.WINDOW_SPAN, 0.0, 100.0)
+
+    def device(name, start, id, **extra):
+        return event(name, start, start + 1.0, device=DeviceType.CUDA, id=id,
+                     **extra)
+
+    events = [window, device("void gemv<4>(float*)", 10.0, 7),
+              device("memcpy32_post", 11.0, 7),
+              device("Memcpy DtoD (Device -> Device)", 12.0, 7),
+              device("mpc.prep", 10.0, 7, is_user_annotation=True),
+              device("void fill(float*)", 20.0, 8),
+              device("void late(float*)", 120.0, 8)]
+    count = launched_kernels(events, window)
+    assert (count[7], count[8]) == (2, 1)
 
 
 @pytest.mark.gpu
@@ -73,18 +112,19 @@ def test_tick_spans_hold_every_kernel_launch_of_the_window(name,
     """A window of bare ticks on the card: every kernel of the device
     timeline (``trace.read``, which leaves the spans' device copies out) was
     launched inside an ``mpc.tick`` span on the host, on the profiler's one
-    clock."""
-    cell = driver.Cell(name, 2 ** 31 + 62, cuda_device,
-                       overrides=dict(warm_passes=0))
-    problem, carry, _, inputs = next(iter(cell.streams.values()))
+    clock. A launch counts the kernels that carry its correlation id: one for
+    a kernel's launch, each kernel of its graph for a graph launch."""
+    replay = driver.Cell(name, 2 ** 31 + 62, cuda_device,
+                         overrides=dict(warm_passes=0)).loop
+    problem, carry, _, inputs = next(iter(replay.streams.values()))
     for snap, est in inputs[:2]:
-        carry, _ = port.tick(cell.ctl, problem, carry, snap, est)
+        carry, _ = port.tick(replay.ctl, problem, carry, snap, est)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(trace.WINDOW_SPAN):
             for snap, est in inputs[2:7]:
-                carry, _ = port.tick(cell.ctl, problem, carry, snap, est)
+                carry, _ = port.tick(replay.ctl, problem, carry, snap, est)
             torch.cuda.synchronize()
     events = prof.events()
     tr = trace.read(events)
@@ -94,7 +134,12 @@ def test_tick_spans_hold_every_kernel_launch_of_the_window(name,
     inside = [e for e in launches if any(
         t.time_range.start <= e.time_range.start
         and e.time_range.end <= t.time_range.end for t in ticks)]
+    window = next(e for e in cpu if e.name == trace.WINDOW_SPAN)
+    by_launch = launched_kernels(events, window)
+    orphans = sum(by_launch.values()) - sum(by_launch[e.id] for e in launches)
     assert len(ticks) == 5
-    assert len(inside) == len(launches) == len(tr.kernels), (
-        len(inside), len(launches), len(tr.kernels),
+    assert (sum(by_launch[e.id] for e in inside)
+            == sum(by_launch[e.id] for e in launches) == len(tr.kernels)), (
+        sum(by_launch[e.id] for e in inside),
+        sum(by_launch[e.id] for e in launches), len(tr.kernels), orphans,
         sorted({e.name for e in launches}))
