@@ -41,9 +41,17 @@ def standing_state(plant, q0_deg, batch: int = 1):
 
 def build_flight_loop(use_nn: bool = True, max_iter: int = 120,
                       rho_update_iters=(20, 50), term_check_every: int = 5,
-                      device=None):
+                      device=None, *, mpc_cfg=None, settings=None,
+                      plant_params=None, sim_cfg=None):
     """Flight-configured :class:`~ironcub_mpc_tpu_torch.runtime.loop.ClosedLoop`
-    plus the converted reference trajectories."""
+    plus the converted reference trajectories.
+
+    ``mpc_cfg`` (``MPCConfig``), ``settings`` (``ADMMSettings``),
+    ``plant_params`` (``PlantParams``) and ``sim_cfg`` (``SimConfig``)
+    replace the flight's own settings where given (a configuration file's,
+    as the benchmark's flight cell passes them); ``sim_cfg`` then decides
+    the LSTM jets in place of ``use_nn``, and ``settings`` the solver in
+    place of ``max_iter``, ``rho_update_iters`` and ``term_check_every``."""
     from ..core.config import MPCConfig, RobotConfig, SimConfig
     from ..dynamics import KinDyn, load_ironcub_model
     from ..ops import admm
@@ -57,22 +65,22 @@ def build_flight_loop(use_nn: bool = True, max_iter: int = 120,
     # re-rooting loader
     model = load_ironcub_model()
     kd = KinDyn(model, device=dev)
-    sim_cfg = SimConfig(use_nn_jet_dynamics=use_nn)
+    sim_cfg = sim_cfg or SimConfig(use_nn_jet_dynamics=use_nn)
     lstm = (LSTMJetModel(str(ROOT / "data/jet_lstm_weights.npz"), device=dev)
-            if use_nn else None)
+            if sim_cfg.use_nn_jet_dynamics else None)
     # flight-tuned parameters: extra arm damping and stronger posture
     # regularisation keep the arms away from the approximate model's
     # follower-force flutter region at flight thrust
-    plant = Plant(kd, RobotConfig(), sim_cfg, params=PlantParams(kd=60.0),
-                  lstm=lstm)
-    cfg = dataclasses.replace(MPCConfig(),
-                              weight_regularization_joint_pos=200.0)
+    plant = Plant(kd, RobotConfig(), sim_cfg,
+                  params=plant_params or PlantParams(kd=60.0), lstm=lstm)
+    cfg = mpc_cfg or dataclasses.replace(
+        MPCConfig(), weight_regularization_joint_pos=200.0)
     # term_check_every: stop iterating once the OSQP termination criterion
     # holds, with the criterion tightened 10x against the OSQP defaults
     # (stopping the mission's ticks at eps = 1e-3 costs real tracking;
     # 1e-4 restores fixed-cap tracking quality and still exits most ticks
     # early)
-    loop = ClosedLoop(plant, cfg, admm.ADMMSettings(
+    loop = ClosedLoop(plant, cfg, settings or admm.ADMMSettings(
         max_iter=max_iter, rho_update_iters=tuple(rho_update_iters),
         term_check_every=term_check_every,
         eps_abs=1e-4 if term_check_every else 1e-3,

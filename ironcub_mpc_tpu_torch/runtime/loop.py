@@ -25,6 +25,7 @@ from ..ops import admm
 from ..ops.so3 import matrix_to_rpy
 from ..qp import mpc as vs_mpc
 from ..sim.plant import SOLE_FRAMES, Plant, PlantState
+from ..utils.profiling import span
 
 
 class LoopCarry(NamedTuple):
@@ -72,7 +73,12 @@ class TickTelemetry(NamedTuple):
 
 
 class ClosedLoop:
-    """Binds a plant, a kinodynamics model and the MPC into one system."""
+    """Binds a plant, a kinodynamics model and the MPC into one system.
+
+    ``mpc_tick`` is the MPC step the loop closes over, called as
+    ``qp/mpc.py``'s ``mpc_tick``; a caller may put in its own (the
+    benchmark's flight cell routes the step through its adapter to the
+    program, where its fault tests reach it)."""
 
     def __init__(self, plant: Plant, mpc_cfg: MPCConfig | None = None,
                  settings: admm.ADMMSettings | None = None):
@@ -83,6 +89,7 @@ class ClosedLoop:
         self.sched = build_schedule(self.cfg)
         self.sel = joint_selector(self.robot_cfg, self.cfg)
         self.settings = settings or admm.ADMMSettings(max_iter=150)
+        self.mpc_tick = vs_mpc.mpc_tick
         self.n_substeps = round(self.cfg.period_mpc / plant.dt)
         # low-pass alpha of the telemetry filter
         self.alpha_lp = self.cfg.period_mpc / (2 * 3.14 * 3 * self.cfg.period_mpc)
@@ -135,15 +142,31 @@ class ClosedLoop:
 
         ``settings`` overrides the loop's solver settings for this tick (a
         failure-recovery pass re-runs a bad tick with a fresh factorisation
-        and boosted iterations)."""
-        s = carry.plant
-        snap, s = self.snapshot(s)
-        est_td = s.ekf.x[..., 1]
-        mpc_carry, out = vs_mpc.mpc_tick(
-            self.cfg, self.sched, self.sel, settings or self.settings,
-            problem, carry.mpc, snap, est_td)
+        and boosted iterations). While a profiler records, the tick is the
+        span ``loop.tick`` around ``loop.snapshot``, the MPC's own
+        ``mpc.tick``, ``loop.apply`` (the commands and the telemetry) and
+        ``loop.plant`` (the substeps). Counter: ``ClosedLoop.tick.ticks``."""
+        ClosedLoop.tick.ticks += 1
+        with span("loop.tick"):
+            with span("loop.snapshot"):
+                s = carry.plant
+                snap, s = self.snapshot(s)
+                est_td = s.ekf.x[..., 1]
+            mpc_carry, out = self.mpc_tick(
+                self.cfg, self.sched, self.sel, settings or self.settings,
+                problem, carry.mpc, snap, est_td)
+            with span("loop.apply"):
+                s, lp_lin, lp_ang, tel = self._apply(carry, s, snap, est_td,
+                                                     out)
+            with span("loop.plant"):
+                s = self.plant.step(s, self.n_substeps)
+        return LoopCarry(plant=s, mpc=mpc_carry,
+                         base_lin_vel_filt=lp_lin, base_ang_vel_filt=lp_ang), tel
 
-        # apply commands
+    def _apply(self, carry: LoopCarry, s: PlantState, snap, est_td, out):
+        """The tick's commands applied to the plant state, the telemetry
+        low-pass and the tick's telemetry: (state, filtered linear and
+        angular base velocity, telemetry)."""
         if not self.plant.sim_cfg.use_nn_jet_dynamics:
             s = self.plant.set_thrust(s, out.thrust_des)
         s = self.plant.set_joint_positions(s, out.joints_pos_ref)
@@ -183,10 +206,7 @@ class ClosedLoop:
             ext_wrench_sum=snap.ext_wrench_sum,
             debug=out.debug,
         )
-
-        s = self.plant.step(s, self.n_substeps)
-        return LoopCarry(plant=s, mpc=mpc_carry,
-                         base_lin_vel_filt=lp_lin, base_ang_vel_filt=lp_ang), tel
+        return s, lp_lin, lp_ang, tel
 
     def rollout(self, problem, carry: LoopCarry, n_ticks: int):
         """``n_ticks`` ticks in a Python loop. Each tick's telemetry (the
@@ -204,3 +224,6 @@ class ClosedLoop:
         if bufs is None:
             raise ValueError("rollout needs n_ticks >= 1")
         return carry, bufs
+
+
+ClosedLoop.tick.ticks = 0

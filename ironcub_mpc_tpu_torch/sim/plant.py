@@ -28,6 +28,7 @@ import torch
 from ..core.config import RobotConfig, SimConfig
 from ..dynamics.kinodynamics import KinDyn, _cross, _mv
 from ..ops.so3 import skew
+from ..utils.profiling import span
 from .ekf import EKFState, JetEKF
 from .jet_lstm import LSTMJetModel
 
@@ -216,14 +217,23 @@ class Plant:
     # ------------------------------------------------------------------
 
     def substep(self, s: PlantState) -> PlantState:
+        """One 1 kHz step. While a profiler records, it is the span
+        ``plant.substep`` with the LSTM step and the EKF update in
+        ``plant.jets``. Counter: ``Plant.substep.substeps``."""
+        Plant.substep.substeps += 1
+        with span("plant.substep"):
+            return self._substep(s)
+
+    def _substep(self, s: PlantState) -> PlantState:
         kd = self.kd
         dt = self.dt
         p = self.params
 
         # --- jet plant + estimator -----------------------------------------
         if self.sim_cfg.use_nn_jet_dynamics:
-            t_nn, td_nn = self.lstm.step(s.thrust_nn, s.throttle, dt)
-            ekf = self.ekf.update(s.ekf, s.throttle, t_nn, td_nn)
+            with span("plant.jets"):
+                t_nn, td_nn = self.lstm.step(s.thrust_nn, s.throttle, dt)
+                ekf = self.ekf.update(s.ekf, s.throttle, t_nn, td_nn)
             thrust = ekf.x[..., 0]
             s = s._replace(thrust_nn=t_nn, ekf=ekf)
         else:
@@ -300,6 +310,9 @@ class Plant:
             lin = lin + std * noise[:, 0:3]
             ang = ang + std * noise[:, 3:6]
         return lin, ang, s
+
+
+Plant.substep.substeps = 0
 
 
 def _exp_so3(w):
