@@ -14,7 +14,9 @@ M(q)ν̇ + h(q,ν) = Sτ + Σ JᵀF with
 
 Every field of :class:`PlantState` carries a leading batch dimension B (one
 lane per scenario), so a Monte-Carlo sweep is one batched rollout; a rollout
-is a Python loop of :meth:`Plant.substep`.
+of n substeps (:func:`run_substeps`) is a Python loop of
+:meth:`Plant.substep`, or on CUDA n replays of one captured CUDA graph of a
+substep (:class:`_SubstepGraph`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..core.config import RobotConfig, SimConfig
 from ..dynamics.kinodynamics import KinDyn, _cross, _mv
 from ..ops.so3 import skew
+from ..utils import graphs
 from ..utils.profiling import span
 from .ekf import EKFState, JetEKF
 from .jet_lstm import LSTMJetModel
@@ -113,6 +116,8 @@ class Plant:
             self._soles.link.repeat_interleave(4)])
         # sensor noise: one generator per plant, seeded by init_state
         self._noise_gen = torch.Generator(device=kd.device)
+        # state layout (_layout) -> its captured substep (run_substeps)
+        self._graphs = {}
 
     def seed_noise(self, seed: int):
         """Seed the sensor-noise generator (``init_state`` does)."""
@@ -291,9 +296,8 @@ class Plant:
                           q=q, qd=nu_new[:, 6:])
 
     def step(self, s: PlantState, n_steps: int) -> PlantState:
-        for _ in range(n_steps):
-            s = self.substep(s)
-        return s
+        """``n_steps`` substeps from ``s`` (:func:`run_substeps`)."""
+        return run_substeps(self, s, n_steps)
 
     # ------------------------------------------------------------------
     # sensors (with optional noise)
@@ -313,6 +317,85 @@ class Plant:
 
 
 Plant.substep.substeps = 0
+
+
+def _graphs_engage(device: torch.device) -> bool:
+    """A substep reads nothing back on the host and draws no noise, so on
+    CUDA it replays from a graph; on any other device it runs eagerly."""
+    return device.type == "cuda"
+
+
+def run_substeps(plant: Plant, s: PlantState, n: int) -> PlantState:
+    """``n`` 1 kHz substeps of ``plant`` from ``s``. On CUDA the state is
+    copied into the buffers of one captured substep (:class:`_SubstepGraph`,
+    captured at the first call for the state's layout), which is replayed
+    ``n`` times, each replay the span ``plant.substep``; the result is a
+    clone the caller owns. Elsewhere :meth:`Plant.substep` runs ``n`` times.
+    Counters: ``run_substeps.substeps``, ``.graphed_substeps`` (those
+    replayed) and ``.graph_captures``; ``Plant.substep.substeps`` moves by
+    ``n`` on both paths."""
+    run_substeps.substeps += n
+    if not _graphs_engage(s.base_p.device):
+        for _ in range(n):
+            s = plant.substep(s)
+        return s
+    key = _layout(s)
+    graph = plant._graphs.get(key)
+    if graph is None:
+        graph = plant._graphs[key] = _SubstepGraph(plant, s)
+        run_substeps.graph_captures += 1
+    run_substeps.graphed_substeps += n
+    Plant.substep.substeps += n
+    return graph(s, n)
+
+
+run_substeps.substeps = 0
+run_substeps.graphed_substeps = 0
+run_substeps.graph_captures = 0
+
+
+def _layout(s: PlantState) -> tuple:
+    """The device, and the shape and dtype of each field of ``s`` (the
+    EKF's within it), None where the field is None."""
+    fields = (*s._replace(ekf=None), *s.ekf)
+    return s.base_p.device, tuple(
+        None if t is None else (t.shape, t.dtype) for t in fields)
+
+
+class _SubstepGraph:
+    """One substep of one plant for one state layout, captured as a CUDA
+    graph that writes the next state over the state it read, so ``n``
+    replays chain with no host work between them. Every field is read from
+    the static buffers (the perturbations too: a new wind or a restored
+    state needs no new capture); the plant's constants at their captured
+    addresses."""
+
+    def __init__(self, plant: Plant, s: PlantState):
+        dev = s.base_p.device
+        self.inputs = graphs.StaticInputs(s)
+        self.outputs = graphs.FlatOutputs(self.inputs.tree)
+        rec = graphs.Piecewise(dev)
+        cur = torch.cuda.current_stream(dev)
+        self.inputs.copy_from(s)
+        rec.stream.wait_stream(cur)
+        # the warm-up makes every cached constant, index and library handle
+        # the capture would otherwise make inside the graph; it and the
+        # capture call _substep, which moves no counter
+        with torch.cuda.stream(rec.stream):
+            plant._substep(self.inputs.tree)
+        with rec.capture():
+            with rec.stage("plant.substep"):
+                self.inputs.copy_from(plant._substep(self.inputs.tree))
+        cur.wait_stream(rec.stream)
+        (_, (self._replay,)), = rec.stages
+
+    def __call__(self, s: PlantState, n: int) -> PlantState:
+        self.inputs.copy_from(s)
+        for _ in range(n):
+            with span("plant.substep"):
+                self._replay()
+        self.outputs.write(self.inputs.tree)
+        return self.outputs.take()
 
 
 def _exp_so3(w):

@@ -177,7 +177,9 @@ def _copy(dsts, srcs):
 class StaticInputs:
     """Contiguous buffers shaped as the tensors of ``tree``, one a position
     (:attr:`tree`, the same structure), filled by :meth:`copy_from` from a
-    tree of that layout with one ``torch._foreach_copy_`` a dtype."""
+    tree of that layout with one ``torch._foreach_copy_`` a dtype; a
+    position that holds its own buffer is left as it is (a capture that
+    writes its result back over its inputs keeps some of them)."""
 
     def __init__(self, tree):
         self._buffers = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
@@ -187,7 +189,9 @@ class StaticInputs:
                              self._buffers)
 
     def copy_from(self, tree):
-        _copy(self._buffers, leaves(tree))
+        pairs = [(b, t) for b, t in zip(self._buffers, leaves(tree))
+                 if t is not b]
+        _copy([b for b, _ in pairs], [t for _, t in pairs])
 
 
 class FlatOutputs:
