@@ -3,7 +3,7 @@
 #include "cuda_runtime.h"
 namespace cooperative_groups {
 struct cluster_group {
-  void sync() const { emu::blk->cluster->bar->arrive_and_wait(); }
+  void sync() const { emu::blk->cluster->bar.arrive_and_wait(); }
   unsigned block_rank() const { return emu::blk->rank; }
   template <class T> T* map_shared_rank(T* p, unsigned rank) const {
     const char* base = reinterpret_cast<const char*>(emu::blk->smem.data());

@@ -4,29 +4,33 @@ A CUDA kernel has no interpret mode, so the card tests
 (tests/test_torch_kernels_gpu.py) are the ones that hold the compiled
 kernels against their twins. These tests hold the *logic* of the same
 sources where there is no card: ``csrc/*.cu`` is compiled by ``g++`` against
-the stand-in headers of tests/cuda_emu (a CUDA thread is an OS thread, a
-barrier a ``std::barrier``, a shuffle an exchange through a per-warp array,
-a peer block's shared memory a pointer), loaded through the same C interface
-as the real library and compared with the plain PyTorch twins: both variants
-of the segment, every route of the grouped segment, every padded size and
-cluster size of the refresh's tuned routes and its general route (its
-launches over output tiles and its elimination on a cluster of 1, 2 or 8
-blocks, at P = 256 with a box of 132, P = 384, P = 640, M in shared and in
-device memory, ragged tile edges), every Gauss–Jordan elimination, ragged
-boxes and the pivot clamp, and P = 1152, above the 1024 threads of a block
-(the general route with n_ns = 0; its Newton–Schulz products at that size
-are left to the card). The segments' cluster route runs on clusters of 1,
-2, 4 and 8 blocks with K⁻¹'s strip in shared memory, in registers and in
-shared memory only in part, their spread route at P = 1152 and 4224 (a
-launch an iteration, NaN-filled scratch).
+the stand-in headers of tests/cuda_emu, loaded through the same C interface
+as the real library and compared with the plain PyTorch twins. A launch of
+the stand-in runs on the calling OS thread: a CUDA thread is a fiber, a
+barrier a cooperative one that hands each fiber back to a scheduler, which
+resumes them in thread order once the barrier has turned, a shuffle an
+exchange through a per-warp array, a peer block's shared memory a pointer.
+Covered: both variants of the segment, every route of the grouped segment,
+every padded size and cluster size of the refresh's tuned routes and its
+general route (its launches over output tiles and its elimination on a
+cluster of 1, 2 or 8 blocks, at P = 256 with a box of 132, P = 384, P = 640,
+M in shared and in device memory, ragged tile edges), every Gauss–Jordan
+elimination, ragged boxes and the pivot clamp, and P = 1152, above the 1024
+threads of a block (the general route with n_ns = 0; its Newton–Schulz
+products at that size are left to the card). The segments' cluster route
+runs on clusters of 1, 2, 4 and 8 blocks with K⁻¹'s strip in shared memory,
+in registers and in shared memory only in part, their spread route at
+P = 1152 and 4224 (a launch an iteration, NaN-filled scratch). A last test
+holds that a launch makes no OS thread.
 What the stand-in cannot see (timing, bank conflicts, a race between two
-barriers) stays with the card. Skips where there is no ``g++`` with C++20's
-``<barrier>``.
-"""
+barriers, which its one fixed order never shows) stays with the card. Skips
+where there is no ``g++``."""
 
 import ctypes
+import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +50,34 @@ DYNAMIC_SMEM = ("extern __shared__ float4 dyn_smem_f4[];",
                 "float4* dyn_smem_f4 = emu::block_smem();")
 
 
+def _numpy_blas_threads(n):
+    """Sets the threads of numpy's bundled OpenBLAS (scipy-openblas) to
+    ``n``; returns the count before, or None where numpy bundles none."""
+    found = sorted((Path(np.__file__).parents[1] / "numpy.libs").glob(
+        "libscipy_openblas*.so"))
+    if not found:
+        return None
+    lib = ctypes.CDLL(str(found[0]))
+    before = lib.scipy_openblas_get_num_threads64_()
+    lib.scipy_openblas_set_num_threads64_(n)
+    return before
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """The inputs' numpy and the twins' PyTorch on one thread, as the
+    launches are: beside five other pytest processes on eight cores, their
+    threads (one a core each) took ~780 of the file's ~830 CPU seconds and
+    tripled its wall time."""
+    torch_before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    blas_before = _numpy_blas_threads(1)
+    yield
+    torch.set_num_threads(torch_before)
+    if blas_before is not None:
+        _numpy_blas_threads(blas_before)
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """``{name: ctypes library}`` of the three sources compiled for the
@@ -54,13 +86,7 @@ def emulated(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA sources for the CPU")
     out = tmp_path_factory.mktemp("cuda_emu")
-    probe = out / "probe.cpp"
-    probe.write_text("#include <barrier>\nstd::barrier<> b(1);\n"
-                     "int main() { b.arrive_and_wait(); }\n")
-    flags = ["-std=c++20", "-O1", "-pthread", "-Wno-unknown-pragmas"]
-    if subprocess.run([gxx, *flags, "-o", str(out / "probe"), str(probe)],
-                      capture_output=True).returncode:
-        pytest.skip("needs a g++ with C++20's <barrier>")
+    flags = ["-std=c++20", "-O1", "-Wno-unknown-pragmas"]
     decl, stand_in = DYNAMIC_SMEM
     # each source and header declares its dynamic shared memory in that one
     # form, if at all; the copies beside each other resolve their includes
@@ -71,15 +97,18 @@ def emulated(tmp_path_factory):
         name = path.name.replace(".cu", ".cpp") if path.suffix == ".cu" \
             else path.name
         (out / name).write_text(text.replace(decl, stand_in))
-    libs = {}
+    # the three builds at once, each writing its errors to a file of its own
+    builds = {}
     for name, source in kernels.SOURCES.items():
         cpp = out / source.replace(".cu", ".cpp")
-        so = out / f"{name}.so"
-        proc = subprocess.run(
-            [gxx, *flags, "-shared", "-fPIC", "-I", str(EMU), "-o", str(so),
-             str(cpp)], capture_output=True, text=True)
-        assert proc.returncode == 0, proc.stderr[-3000:]
-        libs[name] = ctypes.CDLL(str(so))
+        with (out / f"{name}.log").open("w") as log:
+            builds[name] = subprocess.Popen(
+                [gxx, *flags, "-shared", "-fPIC", "-I", str(EMU), "-o",
+                 str(out / f"{name}.so"), str(cpp)], stderr=log)
+    libs = {}
+    for name, build in builds.items():
+        assert build.wait() == 0, (out / f"{name}.log").read_text()[-3000:]
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, argtypes in kernels.SEGMENT_ARGTYPES.items():
         getattr(libs[name], f"{name}_launch").argtypes = argtypes
@@ -563,3 +592,33 @@ def test_woodbury_layout_of_the_source_matches_the_plan(emulated):
                     assert fn(p, n_box, n_ns, c) == \
                         kernels.woodbury_smem_bytes(n_box, n_ns, c, p), \
                         (p, n_box, n_ns, c)
+
+
+def test_launch_makes_no_os_thread(emulated):
+    """A launch runs its CUDA threads on the calling OS thread: while a
+    segment runs on clusters of 8 blocks (1,024 CUDA threads a cluster at
+    P = 256), a sampler counts the process's OS threads, and the count never
+    passes the count before it plus the sampler (ctypes lets go of the GIL
+    for the call, so the sampler runs beside the launch)."""
+    ins = [torch.as_tensor(v).contiguous() for v in
+           _segment_inputs(25, 2, nu=NU2, box0=BOX02, p=P2).values()]
+    ref = kernels.admm_segment_plain(*ins, sigma=SIGMA, alpha=ALPHA, length=3)
+    before = len(os.listdir("/proc/self/task"))
+    counts, sampling, stop = [], threading.Event(), threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            counts.append(len(os.listdir("/proc/self/task")))
+            sampling.set()
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    sampling.wait()
+    try:
+        rc, got = _segment(emulated["admm_segment"], ins, 3, cluster=8)
+    finally:
+        stop.set()
+        sampler.join()
+    assert rc == 0
+    _hold(got, ref)
+    assert max(counts) <= before + 1, (before, max(counts))
