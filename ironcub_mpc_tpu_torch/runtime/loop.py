@@ -7,7 +7,8 @@ accumulating telemetry. Every state tensor carries a leading batch dimension
 B (one lane per scenario), so a robustness sweep is one batched rollout. The
 MPC problem is shared by every lane: it is configured from lane 0, so the
 lanes must share the state they are configured from (they may differ in
-their perturbation fields, e.g. ``wind_force``).
+their perturbation fields, e.g. ``wind_force``). On CUDA a tick's snapshot
+replays one captured CUDA graph (:func:`run_snapshot`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from ..horizon.schedule import build_schedule
 from ..ops import admm
 from ..ops.so3 import matrix_to_rpy
 from ..qp import mpc as vs_mpc
-from ..sim.plant import SOLE_FRAMES, Plant, PlantState
+from ..sim.plant import SOLE_FRAMES, Plant, PlantState, _layout
+from ..utils import graphs
 from ..utils.profiling import span
 
 
@@ -93,22 +95,18 @@ class ClosedLoop:
         self.n_substeps = round(self.cfg.period_mpc / plant.dt)
         # low-pass alpha of the telemetry filter
         self.alpha_lp = self.cfg.period_mpc / (2 * 3.14 * 3 * self.cfg.period_mpc)
+        # layout of the fields the snapshot reads -> its captured snapshot
+        # (run_snapshot)
+        self._snapshot_graphs = {}
 
     # ------------------------------------------------------------------
 
     def snapshot(self, s: PlantState) -> Tuple[RobotSnapshot, PlantState]:
         """The measured robot state from plant sensors (raw velocities feed
         the kinodynamics; the low-pass is telemetry-only). Sole contact
-        wrenches feed the snapshot's ZMP/ground-contact aggregation."""
-        lin, ang, s = self.plant.measured_base_velocity(s)
-        base_vel = torch.cat([lin, ang], dim=-1)
-        snap = compute_snapshot(
-            self.kd, self.robot_cfg.jets_list, s.base_R, s.base_p, base_vel,
-            s.q, s.qd, self.plant.applied_thrust(s),
-            ext_wrench_frames=SOLE_FRAMES,
-            ext_wrenches_body=self.plant.sole_wrenches(s),
-            ground_threshold=self.robot_cfg.threshold_normal_force_on_ground)
-        return snap, s
+        wrenches feed the snapshot's ZMP/ground-contact aggregation
+        (:func:`run_snapshot`)."""
+        return run_snapshot(self, s)
 
     def settle(self, s: PlantState, seconds: float = 2.0) -> PlantState:
         """Stand under PD with idle thrust."""
@@ -227,3 +225,88 @@ class ClosedLoop:
 
 
 ClosedLoop.tick.ticks = 0
+
+
+def run_snapshot(loop: ClosedLoop, s: PlantState
+                 ) -> Tuple[RobotSnapshot, PlantState]:
+    """``loop``'s snapshot of ``s`` and the state after its sensors. The
+    base velocity is measured eagerly (the noise, where the plant draws it,
+    comes from the plant's generator). On CUDA the fields the snapshot
+    reads and that velocity are then copied into the buffers of one
+    captured snapshot (:class:`_SnapshotGraph`, captured at the first call
+    for their layout), which is replayed once; the result is a clone the
+    caller owns. Elsewhere :func:`compute_snapshot` runs eagerly. Counters:
+    ``run_snapshot.snapshots``, ``.graphed_snapshots`` (those replayed) and
+    ``.graph_captures``."""
+    run_snapshot.snapshots += 1
+    lin, ang, s = loop.plant.measured_base_velocity(s)
+    base_vel = torch.cat([lin, ang], dim=-1)
+    if base_vel.device.type != "cuda":
+        return _snapshot(loop, s, base_vel), s
+    fields = _snapshot_fields(s)
+    key = _layout(fields)
+    graph = loop._snapshot_graphs.get(key)
+    if graph is None:
+        graph = loop._snapshot_graphs[key] = _SnapshotGraph(loop, fields,
+                                                            base_vel)
+        run_snapshot.graph_captures += 1
+    run_snapshot.graphed_snapshots += 1
+    return graph(fields, base_vel), s
+
+
+run_snapshot.snapshots = 0
+run_snapshot.graphed_snapshots = 0
+run_snapshot.graph_captures = 0
+
+
+def _snapshot(loop: ClosedLoop, s: PlantState, base_vel) -> RobotSnapshot:
+    """:func:`compute_snapshot` of ``s`` at the measured ``base_vel``, with
+    the plant's applied thrust and sole contact wrenches."""
+    return compute_snapshot(
+        loop.kd, loop.robot_cfg.jets_list, s.base_R, s.base_p, base_vel,
+        s.q, s.qd, loop.plant.applied_thrust(s),
+        ext_wrench_frames=SOLE_FRAMES,
+        ext_wrenches_body=loop.plant.sole_wrenches(s),
+        ground_threshold=loop.robot_cfg.threshold_normal_force_on_ground)
+
+
+def _snapshot_fields(s: PlantState) -> PlantState:
+    """``s`` with the fields :func:`_snapshot` reads (the pose, the
+    velocities, the EKF's estimate and the thrust command) and None in the
+    others."""
+    return PlantState(base_R=s.base_R, base_p=s.base_p, base_v=s.base_v,
+                      q=s.q, qd=s.qd, thrust_nn=None,
+                      ekf=s.ekf._replace(P=None), throttle=None,
+                      q_des=None, thrust_cmd=s.thrust_cmd, rng=None,
+                      wind_force=None, thrust_scale=None)
+
+
+class _SnapshotGraph:
+    """The snapshot of one loop for one layout of the fields it reads,
+    captured as one CUDA graph that reads them and the measured base
+    velocity from static buffers and writes the snapshot into one flat
+    buffer a dtype; the loop's constants at their captured addresses."""
+
+    def __init__(self, loop: ClosedLoop, fields: PlantState, base_vel):
+        dev = base_vel.device
+        self.inputs = graphs.StaticInputs((fields, base_vel))
+        rec = graphs.Piecewise(dev)
+        cur = torch.cuda.current_stream(dev)
+        self.inputs.copy_from((fields, base_vel))
+        rec.stream.wait_stream(cur)
+        # the warm-up makes every cached frame set, constant and library
+        # handle the capture would otherwise make inside the graph
+        with torch.cuda.stream(rec.stream):
+            _snapshot(loop, *self.inputs.tree)
+        with rec.capture():
+            with rec.stage("loop.snapshot"):
+                snap = _snapshot(loop, *self.inputs.tree)
+                self.outputs = graphs.FlatOutputs(snap)
+                self.outputs.write(snap)
+        cur.wait_stream(rec.stream)
+        (_, (self._replay,)), = rec.stages
+
+    def __call__(self, fields: PlantState, base_vel) -> RobotSnapshot:
+        self.inputs.copy_from((fields, base_vel))
+        self._replay()
+        return self.outputs.take()

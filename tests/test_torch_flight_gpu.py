@@ -15,6 +15,7 @@ from ironcub_mpc_tpu_torch import convert
 from ironcub_mpc_tpu_torch.ops import kernels
 from ironcub_mpc_tpu_torch.qp import condensed, mpc
 from ironcub_mpc_tpu_torch.runtime import flight
+from ironcub_mpc_tpu_torch.runtime.loop import run_snapshot
 
 N_TICKS = 10
 
@@ -62,11 +63,12 @@ def test_closed_loop_on_card_matches_cpu_and_launches_kernels(loops):
 def test_tick_never_waits_for_the_device(loops):
     """With per-lane decisions a tick reads nothing back and copies nothing
     from the host: any synchronising call raises under the debug mode. The
-    MPC tick is a replay of its CUDA graphs."""
+    snapshot and the MPC tick are replays of their CUDA graphs."""
     loop, problem, carry = loops["cuda"]
     carry, _ = loop.tick(problem, carry)              # constants are cached
     condensed.batch_any.syncs = 0
     graphed = mpc.mpc_tick.graphed_ticks
+    snapshots = run_snapshot.graphed_snapshots
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -76,4 +78,5 @@ def test_tick_never_waits_for_the_device(loops):
     torch.cuda.synchronize()
     assert condensed.batch_any.syncs == 0
     assert mpc.mpc_tick.graphed_ticks == graphed + 1
+    assert run_snapshot.graphed_snapshots == snapshots + 1
     assert int(tel.solver_status[0]) in (1, 2)
