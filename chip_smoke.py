@@ -2746,7 +2746,7 @@ def phase_sweep(K, dev, record, loop, settled, channels, alpha):
     small = make_batched_carry(carry, RESUME_LANES, scen, seed=SWEEP_SEED + 1)
 
     def small_sweep(lp, pr, b, n_ticks, ck=None, trace=None):
-        on_tick = None if trace is None else (lambda tel: trace.append(
+        on_tick = None if trace is None else (lambda tel, _: trace.append(
             (tel.solver_status, tel.pri_res, tel.dua_res)))
         return run_sweep(lp, pr, b, n_ticks, scen=scen, recover=True,
                          chunk_ticks=RESUME_TICKS // 2, checkpoint_dir=ck,

@@ -18,6 +18,12 @@ carried-inverse guard's ``guard_axis`` and the recovery predicate range over
 the vmap axis inside each shard, never across devices. Here they range over
 the lanes of one rank (``ADMMSettings.batch_guard=True``).
 
+While a profiler records, a tick's recovery predicate is the span
+``sweep.gate``, its re-run (where it runs) ``sweep.retry``, the
+accumulators ``sweep.stats``, and the final reduction ``sweep.reduce``.
+Counters: ``_sweep_tick.ticks``, ``_sweep_tick.retries`` (ticks that re-ran)
+and ``run_sweep.sweeps``.
+
 Performance note: the JAX tools switch the Pallas kernels off for batched
 sweeps, where the batched-GEMM path was faster on a TPU. On the H100 the
 plain PyTorch twins are 20–40× slower than the hand-written kernels at
@@ -39,6 +45,7 @@ from ..ops import admm
 from ..qp import condensed
 from ..runtime import checkpoint
 from ..runtime.loop import ClosedLoop, LoopCarry, TickTelemetry
+from ..utils.profiling import span
 from .mesh import Mesh, scenario_shard
 
 
@@ -151,45 +158,58 @@ def _new_acc(n, dev) -> _Acc:
 def _sweep_tick(loop: ClosedLoop, problem, carry: LoopCarry, acc: _Acc,
                 rec_settings):
     """One tick of every lane, the recovery retry and the statistics."""
+    _sweep_tick.ticks += 1
     plant = loop.plant
     noisy = plant.sim_cfg.simulate_noise
     gen_state = plant.noise_state() if noisy and rec_settings else None
     carry0 = carry
     carry, tel = loop.tick(problem, carry)
-    n_rec, n_ret = acc.n_rec, acc.n_ret
+    n_rec = acc.n_rec
+    bad = None
     if rec_settings is not None:
         # failure recovery: when any lane of this rank is bad, re-run the
         # tick for every lane with a fresh factorisation and more
         # iterations, and keep the retry for the bad lanes (one host
         # read-back per tick for the predicate, counted by batch_any)
-        bad = tel.solver_status >= admm.PRIMAL_INFEASIBLE
-        if condensed.batch_any(bad):
-            if gen_state is not None:
-                # the retry sees the sensor noise of the first attempt, as
-                # the JAX retry re-draws from the lane's saved key
-                plant.set_noise_state(gen_state)
-            carry_r, tel_r = loop.tick(problem, carry0, rec_settings)
-            carry = _pick(bad, carry_r, carry)
-            tel = _pick(bad, tel_r, tel)
-            rec_ok = bad & ((tel_r.solver_status == admm.SOLVED)
-                            | (tel_r.solver_status == admm.SOLVED_INACCURATE))
-            n_rec = n_rec + rec_ok.to(torch.int32)
-        n_ret = n_ret + bad.to(torch.int32)
-    err = torch.linalg.vector_norm(
-        tel.com_position - tel.com_position_desired, dim=-1)
-    err = torch.where(torch.isfinite(err), err,
-                      torch.full_like(err, float("inf")))
-    st = tel.solver_status
-    solved = (st == admm.SOLVED) | (st == admm.SOLVED_INACCURATE)
-    cnt = acc.cnt + torch.stack([
-        st == admm.SOLVED, st == admm.SOLVED_INACCURATE,
-        st == admm.PRIMAL_INFEASIBLE, st == admm.DUAL_INFEASIBLE,
-        st == admm.MAX_ITER_REACHED, tel.guard_fired], dim=-1).to(torch.int32)
-    acc = _Acc(max_err=torch.maximum(acc.max_err, err.to(torch.float32)),
-               sum_solved=acc.sum_solved + solved.to(torch.float32),
-               any_bad=acc.any_bad | (st >= admm.PRIMAL_INFEASIBLE),
-               cnt=cnt, n_rec=n_rec, n_ret=n_ret)
+        with span("sweep.gate"):
+            bad = tel.solver_status >= admm.PRIMAL_INFEASIBLE
+            retry = condensed.batch_any(bad)
+        if retry:
+            _sweep_tick.retries += 1
+            with span("sweep.retry"):
+                if gen_state is not None:
+                    # the retry sees the sensor noise of the first attempt,
+                    # as the JAX retry re-draws from the lane's saved key
+                    plant.set_noise_state(gen_state)
+                carry_r, tel_r = loop.tick(problem, carry0, rec_settings)
+                carry = _pick(bad, carry_r, carry)
+                tel = _pick(bad, tel_r, tel)
+                rec_ok = bad & (
+                    (tel_r.solver_status == admm.SOLVED)
+                    | (tel_r.solver_status == admm.SOLVED_INACCURATE))
+                n_rec = n_rec + rec_ok.to(torch.int32)
+    with span("sweep.stats"):
+        n_ret = acc.n_ret if bad is None else acc.n_ret + bad.to(torch.int32)
+        err = torch.linalg.vector_norm(
+            tel.com_position - tel.com_position_desired, dim=-1)
+        err = torch.where(torch.isfinite(err), err,
+                          torch.full_like(err, float("inf")))
+        st = tel.solver_status
+        solved = (st == admm.SOLVED) | (st == admm.SOLVED_INACCURATE)
+        cnt = acc.cnt + torch.stack([
+            st == admm.SOLVED, st == admm.SOLVED_INACCURATE,
+            st == admm.PRIMAL_INFEASIBLE, st == admm.DUAL_INFEASIBLE,
+            st == admm.MAX_ITER_REACHED, tel.guard_fired],
+            dim=-1).to(torch.int32)
+        acc = _Acc(max_err=torch.maximum(acc.max_err, err.to(torch.float32)),
+                   sum_solved=acc.sum_solved + solved.to(torch.float32),
+                   any_bad=acc.any_bad | (st >= admm.PRIMAL_INFEASIBLE),
+                   cnt=cnt, n_rec=n_rec, n_ret=n_ret)
     return carry, acc, tel
+
+
+_sweep_tick.ticks = 0
+_sweep_tick.retries = 0
 
 
 def _ckpt_path(checkpoint_dir, mesh: Mesh | None) -> Path:
@@ -267,7 +287,7 @@ def run_sweep(loop: ClosedLoop, problem, batched_carry: LoopCarry,
               chunk_ticks: int | None = None,
               checkpoint_dir: str | None = None,
               recover: bool = False,
-              on_tick: Callable[[TickTelemetry], None] | None = None
+              on_tick: Callable[[TickTelemetry, LoopCarry], None] | None = None
               ) -> SweepResult:
     """Run every scenario for ``n_ticks`` and reduce the statistics on the
     device.
@@ -289,8 +309,11 @@ def run_sweep(loop: ClosedLoop, problem, batched_carry: LoopCarry,
     ``on_tick``, if given, is called after every tick with this rank's
     telemetry of it, the recovery retry's for the lanes it re-ran: a trace
     of the sweep lane-tick by lane-tick (status, residuals) for checks that
-    the histogram alone cannot make. Nothing is read back unless it does.
+    the histogram alone cannot make. It is handed this rank's carry after
+    the tick beside it, ``on_tick(telemetry, carry)``: the plant state a
+    check steps a reference from. Nothing is read back unless it does.
     """
+    run_sweep.sweeps += 1
     n = batched_carry.plant.base_p.shape[0]
     shard = scenario_shard(mesh, n)
     carry = tree_map(lambda t: t[shard], batched_carry)
@@ -318,7 +341,7 @@ def run_sweep(loop: ClosedLoop, problem, batched_carry: LoopCarry,
             carry, acc, tel = _sweep_tick(loop, problem, carry, acc,
                                           rec_settings)
             if on_tick is not None:
-                on_tick(tel)
+                on_tick(tel, carry)
         done += length
         if path is not None:
             checkpoint.write(path, {
@@ -326,4 +349,8 @@ def run_sweep(loop: ClosedLoop, problem, batched_carry: LoopCarry,
                 **checkpoint.flatten("acc", acc),
                 "done": torch.tensor(done),
                 checkpoint.NOISE_KEY: loop.plant.noise_state()})
-    return _reduce(mesh, acc, n, n_ticks, scen)
+    with span("sweep.reduce"):
+        return _reduce(mesh, acc, n, n_ticks, scen)
+
+
+run_sweep.sweeps = 0

@@ -283,10 +283,9 @@ class Plant:
         # --- forward dynamics + semi-implicit Euler -----------------------
         # implicit joint damping: τ_d = -D q̇_{k+1}  ⇒  (M + dt·D) ν̇ =
         # τ - D ν_k - bias  (D zero on base rows) — unconditionally stable
-        # for any damping gain. solve_ex: no error flag is read on the host.
+        # for any damping gain. No error flag is read on the host (_solve).
         lhs = M + self._dt_D
-        nu_dot = torch.linalg.solve_ex(
-            lhs, (tau - self._D * nu - bias)[..., None])[0][..., 0]
+        nu_dot = _solve(lhs, (tau - self._D * nu - bias)[..., None])[..., 0]
         nu_new = nu + nu_dot * dt
         v, w = nu_new[:, 0:3], nu_new[:, 3:6]
         base_p = s.base_p + v * dt
@@ -396,6 +395,26 @@ class _SubstepGraph:
                 self._replay()
         self.outputs.write(self.inputs.tree)
         return self.outputs.take()
+
+
+def _solve(lhs, rhs):
+    """``lhs⁻¹ rhs`` of a batch of square systems by LU (``solve_ex``: no
+    error flag read on the host). On CUDA, a batch of more than one system
+    goes through cuSOLVER's and cuBLAS's batched routines: PyTorch's own
+    choice turns to MAGMA past 16 systems of this size, which a CUDA graph
+    cannot capture (the sweep's 1024 lanes). The choice is PyTorch's
+    process-wide preferred library, set around the call and put back; it
+    picks the kernels a graph captures, and eager calls take the same so
+    that they match a replay bit for bit. One system takes PyTorch's own
+    route."""
+    if lhs.device.type != "cuda" or lhs.shape[0] == 1:
+        return torch.linalg.solve_ex(lhs, rhs)[0]
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        return torch.linalg.solve_ex(lhs, rhs)[0]
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def _exp_so3(w):

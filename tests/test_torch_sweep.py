@@ -191,7 +191,8 @@ def _both(setup, name, monkeypatch=None, tmp_path=None):
         kernels.reset_launches()
         condensed.batch_any.syncs = 0
         tres = run_sweep(tl, setup["tproblem"], tb, N_TICKS, scen=scen,
-                         recover=recover, on_tick=lambda tel: t_trace.append(
+                         recover=recover,
+                         on_tick=lambda tel, _: t_trace.append(
                              (tel.solver_status, tel.pri_res, tel.dua_res)))
         syncs = condensed.batch_any.syncs
     finally:
